@@ -52,6 +52,11 @@ def pytest_configure(config):
         "slow: production-shape case excluded from the default <5 min gate; "
         "run with MQ3D_FULL_TESTS=1 (or -m slow) for the full tier",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (CUDA kernels of mq3d_tpu_torch); skips "
+        "without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
