@@ -4,12 +4,18 @@
 
 Phases, one line each (flushed, so a cut run shows where it stopped):
   0. environment: the card's name and power limit; no CUDA -> exit non-zero
-  1. build: one nvcc call compiles mq3d_tpu_torch/csrc/*.cu
+  1. build: mq3d_tpu_torch/csrc/*.cu, one nvcc per source in parallel and
+     one link, with ptxas's registers, shared memory and spills
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with times and byte bounds
+     shapes the main path gives it (and at shapes that take the kernels'
+     scalar paths), with times and byte bounds; bgr_to_gray on the card
+     against the CPU over all 2^24 BGR triples; the gather probe
+     (mq3d_tpu_torch.tools.probe_gather, K3's own path, counts reset just
+     before and read just after)
   3. the main path: a synthetic capture at Quest scale through
      run_full_pipeline with the production TSDF settings (launch counts
-     reset just before, read just after)
+     reset just before, read just after); K1 timed again on one of its
+     integration tiles, saved during the run
   4. the same depth integrated again with the plain lookup: the volume must
      be identical to the kernel path's
   5. a small capture through run_full_pipeline on the CPU and on the card:
@@ -40,8 +46,9 @@ from mq3d_tpu_torch.dataio.ply import read_ply
 from mq3d_tpu_torch.kernels import _build
 from mq3d_tpu_torch.ops import tsdf as tsdf_ops
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
+from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
-from mq3d_tpu_torch.ops.yuv import yuv420_to_8uc3, yuv420_to_bgr
+from mq3d_tpu_torch.ops.yuv import bgr_to_gray, yuv420_to_8uc3, yuv420_to_bgr
 from mq3d_tpu_torch.pipeline.processor import run_full_pipeline
 from mq3d_tpu_torch.pipeline.stages import YUV_BATCH
 from mq3d_tpu_torch.recon.integrate import integrate_multi, tsdf_config_from_integration
@@ -51,11 +58,10 @@ from mq3d_tpu_torch.testing.synthetic import (
     quest_scene,
     write_synthetic_project,
 )
+from mq3d_tpu_torch.tools import probe_gather
+from mq3d_tpu_torch.utils.devtime import bound_ms as bound
+from mq3d_tpu_torch.utils.devtime import time_ms
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# Integer and compare ops run on the SM's ALUs; the data sheet's 67 TFLOP/s
-# float32 (non-tensor) rate is the table's closest line.
-ALU_OPS_PER_S = 67e12
 SEED = 0
 
 
@@ -70,51 +76,50 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() in ms (CUDA events), with the 50 MB L2
-    flushed before each timed launch."""
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device="cuda")
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    del flush
-    return float(np.median(times))
-
-
-def bound(bytes_moved: float, ops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _offset_view(t: torch.Tensor, elems: int = 1) -> torch.Tensor:
+    """The same values at a data pointer `elems` elements past an aligned
+    allocation (not 16-byte aligned for elems % 4 != 0)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def check_k1(rng) -> dict:
-    """K1 at the integration tile's shapes: TP=512 pairs, PS=64, V=16^3."""
-    TP, PS, V = 512, 64, 4096
-    patch = torch.from_numpy(rng.random((TP, PS, PS), dtype=np.float32)).cuda()
-    # Indices span past both edges so out-of-patch voxels read 0.0.
-    vi = torch.from_numpy(rng.integers(-8, PS + 8, (TP, V), dtype=np.int32)).cuda()
-    ui = torch.from_numpy(rng.integers(-8, PS + 8, (TP, V), dtype=np.int32)).cuda()
-    got = patch_lookup(patch, vi, ui)
-    ref = patch_lookup_plain(patch, vi, ui)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError("K1 patch_lookup differs from its plain version")
+    """K1 at the integration tile's shapes (TP=512 pairs, PS=64, V=16^3),
+    timed, and at shapes that take its scalar paths: odd PS, V % 4 != 0,
+    PS=238 (one patch buffer), offset views."""
+    def inputs(TP, PS, V):
+        patch = torch.from_numpy(rng.random((TP, PS, PS), dtype=np.float32)).cuda()
+        # Indices span past both edges so out-of-patch voxels read 0.0.
+        vi = torch.from_numpy(rng.integers(-8, PS + 8, (TP, V), dtype=np.int32)).cuda()
+        ui = torch.from_numpy(rng.integers(-8, PS + 8, (TP, V), dtype=np.int32)).cuda()
+        return patch, vi, ui
+
+    shapes = [(512, 64, 4096), (13, 63, 201), (1, 238, 4096), (600, 32, 130)]
+    timed = None
+    for TP, PS, V in shapes:
+        for offset in (False, True):
+            args = inputs(TP, PS, V)
+            if offset:
+                args = tuple(_offset_view(t) for t in args)
+            got = patch_lookup(*args)
+            ref = patch_lookup_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"K1 patch_lookup differs from its plain version at "
+                    f"{(TP, PS, V)}, offset {offset}")
+            timed = timed or (args, got, ref)
+    (patch, vi, ui), got, ref = timed
+    TP, PS, V = shapes[0]
     ms = time_ms(lambda: patch_lookup(patch, vi, ui))
     plain_ms = time_ms(lambda: patch_lookup_plain(patch, vi, ui))
     nbytes = patch.numel() * 4 + vi.numel() * 4 * 2 + TP * V * 4
     b_ms, b_by = bound(nbytes, 6 * TP * V)  # 4 range compares, index, select
-    log(f"[phase 2] K1 patch_lookup TP={TP} PS={PS} V={V}: equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e6:.1f} MB)")
+    log(f"[phase 2] K1 patch_lookup TP={TP} PS={PS} V={V} (+{shapes[1:]}, "
+        f"each also at offset views): equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
     return {"name": "patch_lookup", "route": "cuda",
             "source": "mq3d_tpu_torch/csrc/patch_lookup.cu",
             "replaces": "mq3d_tpu/ops/tsdf_pallas.py:38",
@@ -125,8 +130,10 @@ def check_k1(rng) -> dict:
 
 def check_k2(rng) -> dict:
     """K2 at the Quest colour shape (960x1280) for N=8 and for the main
-    path's batch of YUV_BATCH=16 frames (timed), and at a shape that is not
-    32-aligned."""
+    path's batch of YUV_BATCH=16 frames (timed), at a row whose staging
+    needs more than 48 KB of shared memory (W=8208), and at shapes that
+    take its scalar path: W % 16 != 0, a row too wide to stage (W=38752)
+    and offset plane views."""
     def planes(n, h, w):
         y = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
         u = rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8)
@@ -134,29 +141,95 @@ def check_k2(rng) -> dict:
         return [torch.from_numpy(p).cuda() for p in (y, u, v)]
 
     err = 0
-    for n, h, w in [(8, 960, 1280), (YUV_BATCH, 960, 1280), (3, 50, 98)]:
+    cases = [((8, 960, 1280), False), ((YUV_BATCH, 960, 1280), False),
+             ((3, 50, 98), False), ((1, 2, 2), False), ((2, 960, 1272), False),
+             ((1, 4, 8208), False), ((1, 2, 38752), False), ((2, 960, 1280), True)]
+    for (n, h, w), offset in cases:
         y, u, v = planes(n, h, w)
+        if offset:
+            y, u, v = (_offset_view(p, 3) for p in (y, u, v))
         got = yuv420_to_bgr(y, u, v)
         ref = yuv420_to_8uc3(y, u, v)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
-            raise AssertionError(f"K2 i420_to_bgr differs from its plain version at {(n, h, w)}")
+            raise AssertionError(
+                f"K2 i420_to_bgr differs from its plain version at {(n, h, w)}, "
+                f"offset {offset}")
         err = max(err, int((got.int() - ref.int()).abs().max()))
-    y, u, v = planes(YUV_BATCH, 960, 1280)
+        if (n, h, w, offset) == (YUV_BATCH, 960, 1280, False):
+            timed = (y, u, v)
+    y, u, v = timed
     ms = time_ms(lambda: yuv420_to_bgr(y, u, v))
     plain_ms = time_ms(lambda: yuv420_to_8uc3(y, u, v))
     px = y.numel()
     nbytes = 4.5 * px
     b_ms, b_by = bound(nbytes, 20 * px)  # ~20 integer ops per pixel
-    log(f"[phase 2] K2 i420_to_bgr N={YUV_BATCH} 960x1280 (+N=8, 3x50x98): equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e6:.1f} MB)")
+    log(f"[phase 2] K2 i420_to_bgr N={YUV_BATCH} 960x1280 (+{[c for c, _ in cases]}, "
+        f"the last at offset views): equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
     return {"name": "i420_to_bgr", "route": "cuda",
             "source": "mq3d_tpu_torch/csrc/i420.cu",
             "replaces": "mq3d_tpu/ops/yuv_pallas.py:32",
             "max_abs_err": float(err),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def check_k3() -> dict:
+    """K3 against torch.take at the gather probe's 16 MB and 128 MB tables
+    with 2^19 indices; the 128 MB table (HBM) is the kernel's row."""
+    rows = {}
+    for mb in (16, 128):
+        table, idx = probe_gather.make_inputs(mb * 2 ** 20 // 4, device="cuda")
+        got = gather(table, idx)
+        ref = gather_plain(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 gather differs from torch.take at {mb} MB")
+        idx64 = idx.long()
+        ms = time_ms(lambda: gather(table, idx))
+        plain_ms = time_ms(lambda: gather_plain(table, idx))
+        library_ms = time_ms(lambda: torch.take(table, idx64))
+        distinct = int(torch.unique(idx).numel())
+        nbytes = idx.numel() * 4 * 2 + distinct * 4
+        b_ms, b_by = bound(nbytes, idx.numel())  # one range check per index
+        log(f"[phase 2] K3 gather {mb} MB table, {idx.numel()} indices "
+            f"({distinct} distinct): equal; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.take {library_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+        rows[mb] = {"name": "gather", "route": "cuda",
+                    "source": "mq3d_tpu_torch/csrc/gather.cu",
+                    "replaces": "tools/probe_pallas_gather.py:49",
+                    "max_abs_err": float((got - ref).abs().max()),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": library_ms}
+    return rows[128]
+
+
+def probe_path() -> int:
+    """K3's own path: the gather probe as its users run it, with the launch
+    counts reset just before and read just after."""
+    _build.reset_launch_counts()
+    rows = probe_gather.run(probe_gather.TABLE_MB, "cuda")
+    launches = _build.launch_counts()["gather"]
+    if not all(r["equal"] for r in rows) or launches == 0:
+        raise AssertionError(f"gather probe failed: {rows}, {launches} launches")
+    log(f"[phase 2] gather probe over {probe_gather.TABLE_MB} MB tables: all "
+        f"equal to torch.take; {launches} K3 launches")
+    return launches
+
+
+def check_gray() -> None:
+    """bgr_to_gray on the card equals the CPU on all 2^24 BGR triples."""
+    idx = torch.arange(1 << 24, dtype=torch.int64)
+    bgr = torch.stack([idx & 255, (idx >> 8) & 255, idx >> 16], -1).to(torch.uint8)
+    want = bgr_to_gray(bgr)
+    got = bgr_to_gray(bgr.cuda()).cpu()
+    bad = int((got != want).sum())
+    log(f"[phase 2] bgr_to_gray, card vs CPU over all 2^24 BGR triples: "
+        f"{bad} mismatches")
+    if bad:
+        raise AssertionError(f"bgr_to_gray differs between card and CPU on {bad} triples")
 
 
 def wall_distance(points, box_min, box_max):
@@ -175,9 +248,19 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
         f"({time.perf_counter() - t0:.1f} s)")
     configs = colorless_recipe(**PRODUCTION_INTEGRATION)
 
+    # Keep the inputs of the first full integration tile that K1 fetches
+    # (its patch and patch-relative indices) for timing K1 on real data.
+    saved = []
+
+    def keep_first_tile(patch, vi, ui):
+        if not saved and patch.shape[0] == configs.reconstruction.depth_integration.integrate_tile:
+            saved.append((patch.clone(), vi.clone(), ui.clone()))
+        return patch_lookup(patch, vi, ui)
+
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     os.environ["MQ3D_SUBSTEP_TIMING"] = "1"  # reconstruction substep seconds
+    tsdf_ops.patch_lookup = keep_first_tile
     _build.reset_launch_counts()
     tsdf_ops.reset_lookup_tile_counts()
     t0 = time.perf_counter()
@@ -186,6 +269,7 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
     total = time.perf_counter() - t0
     launches = _build.launch_counts()
     tiles = tsdf_ops.lookup_tile_counts()
+    tsdf_ops.patch_lookup = patch_lookup
     del os.environ["MQ3D_SUBSTEP_TIMING"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -224,7 +308,25 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
+    time_k1_on_tile(*saved[0])
     return session, configs, vol, launches
+
+
+def time_k1_on_tile(patch, vi, ui) -> None:
+    """K1 on one integration tile of the main path (its patch-relative
+    indices are those of real voxels, not random ones)."""
+    got = patch_lookup(patch, vi, ui)
+    if not torch.equal(got, patch_lookup_plain(patch, vi, ui)):
+        raise AssertionError("K1 differs from its plain version on a main-path tile")
+    TP, PS, _ = patch.shape
+    V = vi.shape[1]
+    ms = time_ms(lambda: patch_lookup(patch, vi, ui))
+    nbytes = patch.numel() * 4 + vi.numel() * 4 * 2 + TP * V * 4
+    b_ms, b_by = bound(nbytes, 6 * TP * V)
+    inside = float(((vi >= 0) & (vi < PS) & (ui >= 0) & (ui < PS)).float().mean())
+    log(f"[phase 3] K1 on a main-path tile TP={TP} PS={PS} V={V} ({inside:.3f} of "
+        f"the voxels inside their patch): equal; kernel {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
 
 
 def plain_path(session: Path, configs: PipelineConfigs, vol: TSDFVolume) -> None:
@@ -294,12 +396,16 @@ def main() -> None:
     lib = _build.build(force=True)
     _build.library()
     log(f"[phase 1] built {lib.name} from {len(list(_build.CSRC_DIR.glob('*.cu')))} "
-        f"sources with one nvcc call: nvcc {_build.last_build_seconds():.1f} s, "
-        f"phase {time.perf_counter() - t0:.1f} s")
+        f"sources, one nvcc each in parallel and one link: nvcc "
+        f"{_build.last_build_seconds():.1f} s, phase {time.perf_counter() - t0:.1f} s")
+    for line in _build.last_build_report().splitlines():
+        log(f"[phase 1] {line}")
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    kernels = [check_k1(rng), check_k2(rng)]
+    kernels = [check_k1(rng), check_k2(rng), check_k3()]
+    check_gray()
+    kernels[2]["launches"] = probe_path()
     log(f"[phase 2] done in {time.perf_counter() - t0:.1f} s")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -308,7 +414,7 @@ def main() -> None:
         t0 = time.perf_counter()
         session, configs, vol, launches = main_path(work, scene)
         log(f"[phase 3] done in {time.perf_counter() - t0:.1f} s")
-        for k in kernels:
+        for k in kernels[:2]:
             k["launches"] = launches[k["name"]]
 
         t0 = time.perf_counter()

@@ -1,12 +1,17 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-All sources in ``mq3d_tpu_torch/csrc/*.cu`` are compiled by ONE ``nvcc``
-call into one shared library with a plain C interface
-(``-gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``),
-placed in ``<repo>/build/`` and loaded with ctypes.  The build happens on
-the first launch of any kernel, never at import, and is redone when the
-hash of the sources or the flags changes.  No source includes PyTorch's
-headers, so the build takes seconds.
+Each source in ``mq3d_tpu_torch/csrc/*.cu`` is compiled by its own
+``nvcc`` process, all started together
+(``-gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -Xptxas -v``),
+so the build takes as long as its slowest source however many sources
+there are; one more ``nvcc`` call links the objects into one shared
+library with a plain C interface, placed in ``<repo>/build/`` and loaded
+with ctypes.
+The build happens on the first launch of any kernel, never at import, and
+is redone when the hash of the sources or the flags changes.  No source
+includes PyTorch's headers, so the build takes seconds.  ptxas's report
+(registers, shared memory, spills of each kernel) is kept
+(``last_build_report``).
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrapper raises when it is not 0.  Every pointer and the stream are passed
@@ -34,7 +39,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # C entry points: name -> argtypes.  P = pointer, I = int.
@@ -45,12 +50,15 @@ _SIGNATURES = {
     "mq3d_patch_lookup": (_P, _P, _P, _P, _I, _I, _I, _P),
     # (y, u, v, out, N, H, W, stream)
     "mq3d_i420_to_bgr": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (table, n, idx, out, m, stream)
+    "mq3d_gather": (_P, _I, _P, _P, ctypes.c_longlong, _P),
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _last_build_seconds: Optional[float] = None
-_launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0}
+_last_build_report: str = ""
+_launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}
 
 
 def count_launch(name: str) -> None:
@@ -67,9 +75,15 @@ def launch_counts() -> Dict[str, int]:
 
 
 def last_build_seconds() -> Optional[float]:
-    """Seconds the nvcc call took in this process (None: loaded from an
+    """Seconds the build took in this process (None: loaded from an
     earlier build or not built yet)."""
     return _last_build_seconds
+
+
+def last_build_report() -> str:
+    """ptxas's lines (registers, shared memory, spills per kernel) from the
+    build in this process ("" when none ran)."""
+    return _last_build_report
 
 
 def _sources():
@@ -100,25 +114,62 @@ def find_nvcc() -> str:
         "the CUDA kernels cannot be built")
 
 
+def compile_library(sources, lib_path: Path) -> str:
+    """Compile `sources` (one nvcc process each, all started together) and
+    link them into `lib_path`.  Returns ptxas's report; raises on failure."""
+    nvcc = find_nvcc()
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [lib_path.with_name(f"{tag}.{src.stem}.o") for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    tmp = lib_path.with_name(f"{tag}.tmp.so")
+    try:
+        for cmd, p, (out, err) in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
+    return "\n".join(line.strip() for out, err in outs
+                     for line in (out + err).splitlines()
+                     if "ptxas" in line or "spill" in line)
+
+
 def build(force: bool = False) -> Path:
     """Compile csrc/*.cu into build/libmq3d_kernels_<hash>.so if it is not
     there yet (or always, with force=True).  Returns the library path."""
-    global _last_build_seconds
+    global _last_build_seconds, _last_build_report
     lib_path = BUILD_DIR / f"libmq3d_kernels_{_source_hash()}.so"
     if lib_path.exists() and not force:
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    _last_build_report = compile_library(_sources(), lib_path)
     _last_build_seconds = time.perf_counter() - t0
     return lib_path
+
+
+def load(lib_path: Path, names=None) -> ctypes.CDLL:
+    """Load a built library and type its C entry points (`names`, default
+    all of them)."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name in names or _SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -126,12 +177,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 

@@ -11,7 +11,8 @@ voxel of the block fetches its nearest depth from it:
 `patch_lookup` launches the hand-written CUDA kernel (csrc/patch_lookup.cu)
 for tensors on the card and runs `patch_lookup_plain` for tensors on the
 CPU; anything else raises.  The kernel has none of the Pallas block
-constraints (TP % 8, V % 128): any TP, PS and V work.
+constraints (TP % 8, V % 128): any TP, V and PS up to 238 work, aligned
+or not (misaligned rows or odd PS take the kernel's scalar path).
 """
 
 from __future__ import annotations

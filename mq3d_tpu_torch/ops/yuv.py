@@ -167,13 +167,61 @@ def convert_yuv_batch(
 # Image-quality filters (blur / exposure), batched, plain PyTorch
 # ---------------------------------------------------------------------------
 
+# Gray weights as the JAX build evaluates them: XLA's CPU backend contracts
+# 0.299 R + 0.587 G + 0.114 B into rint(fma(0.114, B, fma(0.299, R, 0.587 G)))
+# in float64.  The port computes that chain exactly in int64 fixed point
+# (units of 2^-56, the finest ulp of the three constants), so the CPU and
+# the card give the same bytes whatever FMA contraction their compilers do.
+_GRAY_FRAC_BITS = 56
+_GRAY_ONE = 1 << _GRAY_FRAC_BITS
+
+
+def _fixed_product(c: float, x: torch.Tensor):
+    """Exact c * x for an int64 tensor x in [0, 255], as (integer part,
+    fraction in units of 2^-56).  c's numerator has 53 bits, so the product
+    fits int64."""
+    num, den = c.as_integer_ratio()
+    shift = den.bit_length() - 1
+    prod = x * num
+    return prod >> shift, (prod & (den - 1)) << (_GRAY_FRAC_BITS - shift)
+
+
+def _fixed_add(a, b):
+    f = a[1] + b[1]
+    return a[0] + b[0] + (f >> _GRAY_FRAC_BITS), f & (_GRAY_ONE - 1)
+
+
+def _round_to_double(q: torch.Tensor, f: torch.Tensor):
+    """Round q + f / 2^56 (0 <= value < 512) to the nearest float64, ties to
+    even, keeping the fixed-point form."""
+    # The float64 ulp at this value is 2^s units: s = floor(log2 q) + 4 for
+    # values >= 1, and for values < 1 the bits of f beyond 53.
+    e_q = sum((q >= (1 << j)).long() for j in range(1, 9))
+    e_f = sum((f >= (1 << j)).long() for j in range(53, 56))
+    s = torch.where(q > 0, e_q + 4, e_f)
+    unit = torch.ones_like(f) << s
+    rem = f & (unit - 1)
+    half = unit >> 1
+    down = f - rem
+    odd = ((down >> s) & 1) == 1
+    up = (rem > half) | ((rem == half) & (half > 0) & odd)
+    f = down + (up.long() << s)
+    return q + (f >> _GRAY_FRAC_BITS), f & (_GRAY_ONE - 1)
+
+
 def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
-    """OpenCV-exact BGR -> gray: round(0.299 R + 0.587 G + 0.114 B) with
-    round-half-to-even, computed in float64."""
-    b = bgr[..., 0].to(torch.float64)
-    g = bgr[..., 1].to(torch.float64)
-    r = bgr[..., 2].to(torch.float64)
-    return torch.round(0.299 * r + 0.587 * g + 0.114 * b).to(torch.uint8)
+    """BGR uint8 -> gray uint8, equal to the JAX build's `bgr_to_gray` on
+    every input: rint(fma(0.114, B, fma(0.299, R, 0.587 G))) with float64
+    FMAs (each rounded once) and round-half-to-even, computed exactly in
+    int64 fixed point."""
+    x = bgr.to(torch.int64)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    acc = _round_to_double(*_fixed_product(0.587, g))
+    acc = _round_to_double(*_fixed_add(_fixed_product(0.299, r), acc))
+    q, f = _round_to_double(*_fixed_add(_fixed_product(0.114, b), acc))
+    half = _GRAY_ONE >> 1
+    up = (f > half) | ((f == half) & ((q & 1) == 1))
+    return (q + up.long()).to(torch.uint8)
 
 
 def laplacian_variance(gray: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,14 @@ jax nor mq3d_tpu, so it also runs on a machine with the card and no JAX:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: exact (K1 is a gather, K2 integer arithmetic).
+Every in-kernel path is held bit-equal to the plain version: K1's bulk
+copy and vector indices, its scalar staging (odd PS or an unaligned patch),
+its scalar indices (V % 4 != 0 or unaligned rows) and its one-buffer ring
+(PS > 170); K2's 16-pixel vector strips staged in shared memory (past
+48 KB of it at W=8208) and its scalar strips (W % 16 != 0, rows too wide
+to stage at W=38752, or unaligned planes); K3's vector and scalar paths.
+
+Tolerance: exact (K1 and K3 are gathers, K2 integer arithmetic).
 """
 
 import numpy as np
@@ -13,6 +20,7 @@ import pytest
 import torch
 
 from mq3d_tpu_torch.kernels import _build
+from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.yuv import yuv420_to_8uc3, yuv420_to_bgr
 
@@ -24,8 +32,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _offset_view(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """t's values at a data pointer `elems` elements into a fresh buffer."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("TP,PS,V", [(512, 64, 4096), (13, 8, 200), (1, 128, 77)])
+@pytest.mark.parametrize("TP,PS,V", [
+    (512, 64, 4096), (13, 8, 200), (1, 128, 77), (7, 63, 4096), (5, 64, 4095),
+    (1, 238, 512), (2, 170, 64), (3, 172, 64), (1, 1, 1), (3000, 16, 256)])
 def test_k1_kernel_matches_plain(cuda_device, TP, PS, V):
     rng = np.random.default_rng(0)
     patch = torch.from_numpy(rng.random((TP, PS, PS), dtype=np.float32)).to(cuda_device)
@@ -38,7 +56,23 @@ def test_k1_kernel_matches_plain(cuda_device, TP, PS, V):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w", [(2, 960, 1280), (3, 50, 98), (1, 2, 2)])
+@pytest.mark.parametrize("offsets", [(1, 0, 0, 0), (0, 1, 2, 3), (4, 4, 4, 4)])
+def test_k1_kernel_matches_plain_on_offset_views(cuda_device, offsets):
+    """Patch, vi, ui at `offsets` elements past an aligned allocation: an
+    odd offset takes the scalar paths, 4 keeps 16-byte alignment."""
+    TP, PS, V = 9, 64, 1024
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(rng.random((TP, PS, PS), dtype=np.float32)),
+            torch.from_numpy(rng.integers(-5, PS + 5, (TP, V), dtype=np.int32)),
+            torch.from_numpy(rng.integers(-5, PS + 5, (TP, V), dtype=np.int32))]
+    args = [_offset_view(a.to(cuda_device), k) for a, k in zip(args, offsets)]
+    assert torch.equal(patch_lookup(*args), patch_lookup_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(2, 960, 1280), (3, 50, 98), (1, 2, 2),
+                                   (2, 64, 1272), (1, 6, 16), (1, 4, 48),
+                                   (3, 34, 1280), (1, 4, 8208), (1, 2, 38752)])
 def test_k2_kernel_matches_plain(cuda_device, n, h, w):
     rng = np.random.default_rng(1)
     y = torch.from_numpy(rng.integers(0, 256, (n, h, w), np.uint8)).to(cuda_device)
@@ -51,6 +85,43 @@ def test_k2_kernel_matches_plain(cuda_device, n, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 3, 5), (16, 8, 8)])
+def test_k2_kernel_matches_plain_on_offset_views(cuda_device, offsets):
+    """Planes at `offsets` bytes into fresh buffers: unaligned luma or
+    chroma takes the scalar strips; (16, 8, 8) keeps the vector path."""
+    n, h, w = 2, 32, 64
+    rng = np.random.default_rng(4)
+    planes = [rng.integers(0, 256, s, np.uint8)
+              for s in ((n, h, w), (n, h // 2, w // 2), (n, h // 2, w // 2))]
+    y, u, v = (_offset_view(torch.from_numpy(p).to(cuda_device), k)
+               for p, k in zip(planes, offsets))
+    assert torch.equal(yuv420_to_bgr(y, u, v), yuv420_to_8uc3(y, u, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_mb,m,offset", [
+    (16, 1 << 19, 0), (128, 1 << 19, 0), (1, 4099, 0), (1, 4096, 1), (0.1, 1, 0)])
+def test_k3_kernel_matches_torch_take(cuda_device, table_mb, m, offset):
+    from mq3d_tpu_torch.tools.probe_gather import make_inputs
+
+    table, idx = make_inputs(int(table_mb * 2 ** 20) // 4, m, seed=5, device=cuda_device)
+    if offset:
+        idx = _offset_view(idx, offset)
+    before = _build.launch_counts()["gather"]
+    got = gather(table, idx)
+    assert _build.launch_counts()["gather"] == before + 1
+    assert torch.equal(got, gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_k3_out_of_range_reads_nan(cuda_device):
+    table = torch.arange(8, dtype=torch.float32, device=cuda_device)
+    idx = torch.tensor([0, -1, 8, 7], dtype=torch.int32, device=cuda_device)
+    got = gather(table, idx).cpu()
+    assert got[0] == 0 and got[3] == 7 and torch.isnan(got[1:3]).all()
+
+
+@pytest.mark.cuda
 def test_empty_inputs_launch_nothing(cuda_device):
     """An empty batch returns an empty result and counts no launch."""
     _build.reset_launch_counts()
@@ -60,4 +131,6 @@ def test_empty_inputs_launch_nothing(cuda_device):
     y = torch.zeros((0, 4, 4), dtype=torch.uint8, device=cuda_device)
     uv = torch.zeros((0, 2, 2), dtype=torch.uint8, device=cuda_device)
     assert yuv420_to_bgr(y, uv, uv).shape == (0, 4, 4, 3)
-    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0}
+    table = torch.zeros(16, dtype=torch.float32, device=cuda_device)
+    assert gather(table, torch.zeros(0, dtype=torch.int32, device=cuda_device)).shape == (0,)
+    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}

@@ -1,12 +1,15 @@
-"""mq3d_tpu_torch kernels K1 (patch lookup) and K2 (I420 -> BGR).
+"""mq3d_tpu_torch kernels K1 (patch lookup), K2 (I420 -> BGR) and K3
+(gather).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; those are
 held here against the JAX package's Pallas kernels in interpret mode and
-its XLA reference.  Tolerance: exact (K1 is a pure gather, K2 integer
+its XLA reference (K3: jnp.take, the body of the gather probe's Pallas
+kernels).  Tolerance: exact (K1 and K3 are pure gathers, K2 integer
 arithmetic on uint8).  The CUDA kernels themselves are held against the
 plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ from mq3d_tpu.ops.tsdf_pallas import patch_lookup as jax_patch_lookup
 from mq3d_tpu.ops.yuv import yuv420_to_8uc3 as jax_yuv420_to_8uc3
 from mq3d_tpu.ops.yuv_pallas import yuv420_to_bgr_pallas
 from mq3d_tpu_torch.kernels import _build
+from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.yuv import yuv420_to_8uc3, yuv420_to_bgr
 
@@ -117,17 +121,56 @@ def test_cpu_calls_count_no_launch(rng):
     y = torch.zeros((1, 4, 4), dtype=torch.uint8)
     c = torch.zeros((1, 2, 2), dtype=torch.uint8)
     yuv420_to_bgr(y, c, c)
-    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0}
+    gather(torch.zeros(8), torch.zeros(4, dtype=torch.int32))
+    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}
 
 
 def test_build_sources_and_flags():
-    """One nvcc call over every csrc/*.cu for sm_90a; no source includes
-    PyTorch's headers; the build hash follows the sources."""
+    """Every csrc/*.cu is compiled for sm_90a (one nvcc process per source,
+    all started together, then one link); no source includes PyTorch's
+    headers; the build hash follows the sources."""
     srcs = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
-    assert srcs == ["i420.cu", "patch_lookup.cu"]
+    assert srcs == ["gather.cu", "i420.cu", "patch_lookup.cu"]
     for p in _build.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text
         assert "cudaGetLastError" in text
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "-v" in _build.NVCC_FLAGS  # ptxas reports registers and spills
     assert len(_build._source_hash()) == 16
+    assert set(_build._SIGNATURES) == {
+        "mq3d_patch_lookup", "mq3d_i420_to_bgr", "mq3d_gather"}
+
+
+@pytest.mark.parametrize("n,m", [(1 << 12, 1 << 10), (1 << 16, 4099), (7, 1)])
+def test_k3_plain_matches_jnp_take(n, m):
+    """The gather probe's inputs (tools/probe_pallas_gather.py `make`, at
+    smaller sizes): exact against jnp.take, the Pallas kernels' body."""
+    from mq3d_tpu_torch.tools.probe_gather import make_inputs
+
+    table, idx = make_inputs(n, m, seed=0)
+    want = np.asarray(jnp.take(jnp.asarray(table.numpy()), jnp.asarray(idx.numpy()), axis=0))
+    np.testing.assert_array_equal(gather(table, idx).numpy(), want)
+    np.testing.assert_array_equal(gather_plain(table, idx).numpy(), want)
+
+
+def test_k3_wrapper_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(TypeError):
+        gather(torch.zeros(8, dtype=torch.float64), torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        gather(torch.zeros(8), torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        gather(torch.zeros((2, 4)), torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        gather(torch.zeros(8).to("meta"), torch.zeros(4, dtype=torch.int32).to("meta"))
+
+
+def test_probe_gather_cli_on_the_cpu(capsys):
+    """The probe runs its plain version on the CPU and times nothing."""
+    from mq3d_tpu_torch.tools import probe_gather
+
+    assert probe_gather.main(["--device", "cpu", "--sizes-mb", "0.125", "1"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "not timed (CPU)" in out[0] and "(fits shared memory)" in out[0]
+    assert "(fits L2)" in out[1]
+    assert '"probe_gather"' in out[-1]
