@@ -18,17 +18,32 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      integration tiles, saved during the run
   4. the same depth integrated again with the plain lookup: the volume must
      be identical to the kernel path's
-  5. a small capture through run_full_pipeline on the CPU and on the card:
-     the artifacts must be identical (the CPU run is plain PyTorch)
+  5. a small capture through run_full_pipeline with the colored recipe
+     (steps 0 and 3-6) on the CPU and on the card: the volume, points and
+     meshes must be identical, the sampled points too, and the rendered
+     depth and refined poses must agree within the CPU tests' tolerances
+     (the CPU run is plain PyTorch)
+  6. the colored recipe at full width on the card: phase 3's capture and
+     volume (volume cache on) through marching cubes, the mesh filter,
+     colour-map optimisation (every 10th frame), point sampling and the
+     color-aligned depth raycast (launch counts reset just before, read
+     just after: steps 4-6 have no hand kernel yet), with substep seconds,
+     mesh size, Gauss-Newton residuals, raycast ms per frame and peak
+     memory; the mesh must lie on the box walls and the rendered depth
+     must match the analytic box depth
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -39,11 +54,14 @@ import torch
 from mq3d_tpu_torch.config.configs import (
     PRODUCTION_INTEGRATION,
     PipelineConfigs,
+    colored_recipe,
     colorless_recipe,
 )
 from mq3d_tpu_torch.dataio.data_io import DataIO
 from mq3d_tpu_torch.dataio.ply import read_ply
 from mq3d_tpu_torch.kernels import _build
+from mq3d_tpu_torch.models.side import Side
+from mq3d_tpu_torch.ops import raycast
 from mq3d_tpu_torch.ops import tsdf as tsdf_ops
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
@@ -56,6 +74,7 @@ from mq3d_tpu_torch.recon.reconstruct import load_depth_datasets
 from mq3d_tpu_torch.testing.synthetic import (
     SyntheticSceneConfig,
     quest_scene,
+    render_box_depth,
     write_synthetic_project,
 )
 from mq3d_tpu_torch.tools import probe_gather
@@ -67,6 +86,17 @@ SEED = 0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class _Tee(io.StringIO):
+    """Standard output that is also kept, for the lines a run prints."""
+
+    def write(self, text: str) -> int:
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+    def flush(self) -> None:
+        sys.__stdout__.flush()
 
 
 def gpu_name_and_power() -> str:
@@ -204,6 +234,21 @@ def check_k3() -> dict:
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": library_ms}
     return rows[128]
+
+
+def time_fma(rng) -> None:
+    """`ops.tsdf._fma` (correctly rounded) at an integration tile's shape
+    (512 pairs x 16^3 voxels), against the float64-then-float32 form it
+    replaced, which rounds twice, for its cost only."""
+    a, b, c = (torch.from_numpy(rng.standard_normal((512, 4096), dtype=np.float32)).cuda()
+               for _ in range(3))
+    got = tsdf_ops._fma(a, b, c)
+    if not torch.equal(got.cpu(), tsdf_ops._fma(a.cpu(), b.cpu(), c.cpu())):
+        raise AssertionError("_fma differs between the card and the CPU")
+    ms = time_ms(lambda: tsdf_ops._fma(a, b, c))
+    old_ms = time_ms(lambda: (a.double() * b.double() + c.double()).float())
+    log(f"[phase 2] _fma at 512x4096: card == CPU; {ms:.4f} ms, the double-rounded "
+        f"form {old_ms:.4f} ms")
 
 
 def probe_path() -> int:
@@ -355,30 +400,202 @@ def plain_path(session: Path, configs: PipelineConfigs, vol: TSDFVolume) -> None
         raise AssertionError(f"kernel path and plain path volumes differ: {same}")
 
 
+MESHES = ("colorless_mesh_raw.ply", "colorless_mesh_clean.ply", "color_mesh.ply")
+
+
+def compare_colored(a: Path, b: Path):
+    """Artifacts of two colored-recipe runs of one capture: ({name: True
+    where they agree within the CPU tests' tolerances}, {name: largest
+    difference}).  Tolerances (tests/test_torch_colored.py): volume,
+    points, meshes and sampled points identical; colours within one uint8
+    unit; poses within 1e-5; depth hit/miss equal on >= 99.9 % of the
+    pixels and |dz| <= 1e-4 m on >= 99.9 % of the common hits."""
+    diff = {}
+    ra, rb = a / "reconstruction", b / "reconstruction"
+    va, vb = np.load(ra / "colorless_vbg.npz"), np.load(rb / "colorless_vbg.npz")
+    same = {f"vbg.{k}": bool(np.array_equal(va[k], vb[k])) for k in va.files}
+    pa, pb = read_ply(ra / "colorless.ply"), read_ply(rb / "colorless.ply")
+    same["colorless.ply"] = bool(np.array_equal(pa.points, pb.points)
+                                 and np.array_equal(pa.normals, pb.normals))
+    for name in MESHES:
+        ma, mb = read_ply(ra / name), read_ply(rb / name)
+        same[name] = all(np.array_equal(getattr(ma, k), getattr(mb, k))
+                         for k in ("vertices", "triangles", "vertex_normals"))
+    ca, cb = read_ply(ra / "color_mesh.ply"), read_ply(rb / "color_mesh.ply")
+    same["color_mesh colours"] = bool(np.abs(ca.vertex_colors - cb.vertex_colors).max()
+                                      <= 1 / 255 + 1e-12)
+    sa, sb = read_ply(ra / "color.ply"), read_ply(rb / "color.ply")
+    same["color.ply points"] = bool(np.array_equal(sa.points, sb.points)
+                                    and np.array_equal(sa.normals, sb.normals))
+    same["color.ply colours"] = bool(np.abs(sa.colors - sb.colors).max() <= 1 / 255 + 1e-12)
+    for side in ("left", "right"):
+        name = f"{side}_camera_dataset_optimized.npz"
+        da, db = np.load(a / "dataset" / name), np.load(b / "dataset" / name)
+        same[f"{side} poses"] = all(
+            np.allclose(da[k], db[k], rtol=0, atol=1e-5) if k in ("positions", "rotations")
+            else np.array_equal(da[k], db[k]) for k in da.files)
+        diff[f"{side} poses"] = max(float(np.abs(da[k] - db[k]).max())
+                                    for k in ("positions", "rotations"))
+        fa = sorted((a / f"{side}_color_aligned_depth").glob("*.npy"))
+        fb = sorted((b / f"{side}_color_aligned_depth").glob("*.npy"))
+        za = np.stack([np.load(f) for f in fa])
+        zb = np.stack([np.load(f) for f in fb])
+        ha, hb = np.isfinite(za), np.isfinite(zb)
+        both = ha & hb
+        same[f"{side} depth"] = bool(
+            [f.name for f in fa] == [f.name for f in fb] and (ha == hb).mean() >= 0.999
+            and (np.abs(za[both] - zb[both]) <= 1e-4).mean() >= 0.999)
+        diff[f"{side} depth"] = float(np.abs(za[both] - zb[both]).max())
+        diff[f"{side} hit/miss"] = int((ha != hb).sum())
+    return same, diff
+
+
 def small_cpu_vs_card(work: Path) -> None:
-    """Phase 5: a small capture on the CPU (plain PyTorch) and on the card."""
+    """Phase 5: a small capture through the colored recipe on the CPU (plain
+    PyTorch) and on the card."""
     scene = SyntheticSceneConfig(n_frames=12)
-    configs = dict(voxel_size=0.02, block_resolution=16, block_count=4096,
-                   grid_dim=16, depth_max=4.0, trunc_voxel_multiplier=4.0,
-                   chunk_active_capacity=4096, integrate_tile=256,
-                   frames_per_batch=8)
+    integration = dict(voxel_size=0.02, block_resolution=16, block_count=4096,
+                       grid_dim=16, depth_max=4.0, trunc_voxel_multiplier=4.0,
+                       chunk_active_capacity=4096, integrate_tile=256,
+                       frames_per_batch=8)
+    colour = dict(interval=4, max_iteration=12, min_triangle_count=100)
     sessions = {}
     for device in ("cpu", "cuda"):
         session = work / f"small_{device}"
         write_synthetic_project(session, scene)
-        run_full_pipeline(session, colorless_recipe(**configs), device=device)
-        sessions[device] = session / "reconstruction"
-    a = np.load(sessions["cpu"] / "colorless_vbg.npz")
-    b = np.load(sessions["cuda"] / "colorless_vbg.npz")
-    pa = read_ply(sessions["cpu"] / "colorless.ply")
-    pb = read_ply(sessions["cuda"] / "colorless.ply")
-    same = {k: bool(np.array_equal(a[k], b[k])) for k in a.files}
-    same["points"] = bool(np.array_equal(pa.points, pb.points))
-    same["normals"] = bool(np.array_equal(pa.normals, pb.normals))
-    log(f"[phase 5] small capture, CPU vs card: {a['block_coords'].shape[0]} "
-        f"blocks, {len(pa.points)} points; identical: {all(same.values())}")
+        run_full_pipeline(session, colored_recipe(colour, **integration), device=device)
+        sessions[device] = session
+    same, diff = compare_colored(sessions["cpu"], sessions["cuda"])
+    recon = sessions["cpu"] / "reconstruction"
+    mesh = read_ply(recon / "color_mesh.ply")
+    log(f"[phase 5] small capture, colored recipe, CPU vs card: "
+        f"{np.load(recon / 'colorless_vbg.npz')['block_coords'].shape[0]} blocks, "
+        f"{len(read_ply(recon / 'colorless.ply').points)} points, colored mesh "
+        f"{len(mesh.vertices)} vertices / {len(mesh.triangles)} triangles; agree: {same}; "
+        f"largest differences: {diff}")
     if not all(same.values()):
         raise AssertionError(f"CPU and card runs differ: {same}")
+
+
+def colored_path(session: Path, scene: SyntheticSceneConfig) -> None:
+    """Phase 6: the colored recipe at full width on the card, on phase 3's
+    capture and volume."""
+    configs = colored_recipe({"interval": 10}, **PRODUCTION_INTEGRATION)
+    configs.reconstruction.use_colorless_vbg_cache = True
+    co = configs.reconstruction.color_optimization
+    log(f"[phase 6] colored recipe: interval {co.interval}, max_iteration "
+        f"{co.max_iteration}, min_triangle_count {co.min_triangle_count}, weight_threshold "
+        f"{co.weight_threshold}; volume from phase 3 (colorless_vbg.npz)")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    os.environ["MQ3D_SUBSTEP_TIMING"] = "1"  # [Substep] lines: the substep seconds
+    out = _Tee()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run = run_full_pipeline(session, configs, device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    del os.environ["MQ3D_SUBSTEP_TIMING"]
+    printed = out.getvalue()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[phase 6] stage seconds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in run.stage_seconds.items())
+        + f"; total {total:.2f} s; peak device memory {peak_gb:.2f} GB; launches "
+        f"{launches} (steps 4-6 run plain PyTorch; K1/K2 of steps 0/3 ran in phase 3)")
+
+    recon = session / "reconstruction"
+    raw = read_ply(recon / "colorless_mesh_raw.ply")
+    mesh = read_ply(recon / "color_mesh.ply")
+    pcd = read_ply(recon / "color.ply")
+    gn = re.search(r"\[ColorOpt\] (\d+) iterations, residual first (\S+) last (\S+)",
+                   printed)
+    n_iter, res_first, res_last = int(gn[1]), float(gn[2]), float(gn[3])
+    vs = PRODUCTION_INTEGRATION["voxel_size"]
+    dist = wall_distance(mesh.vertices, scene.box_min, scene.box_max)
+    log(f"[phase 6] raw mesh {len(raw.vertices)} vertices / {len(raw.triangles)} triangles; "
+        f"colored mesh {len(mesh.vertices)} / {len(mesh.triangles)}; colored points "
+        f"{len(pcd.points)}; wall distance median {np.median(dist):.5f} m p99 "
+        f"{np.quantile(dist, 0.99):.5f} m")
+    log(f"[phase 6] Gauss-Newton: {n_iter} iterations, residual first {res_first:.6f} "
+        f"last {res_last:.6f}")
+    # The device parts of the run, as the entries' own substeps timed them
+    # (each ends in a readback, so the host clock holds the device work).
+    mc_s = [float(x) for x in re.findall(
+        r"\[Substep\] extract_triangle_mesh\.device: (\S+)s", printed)]
+    label_s = [float(x) for x in re.findall(
+        r"\[Substep\] filter_mesh_components\.labels: (\S+)s", printed)]
+
+    # The raycast through its entries, on the same volume: a new volume
+    # object over the same state misses the scene-prep cache once, so its
+    # first render preps the scene and its second does not.
+    data_io = DataIO(session)
+    datasets = {side: data_io.color.load_optimized_color_dataset(side) for side in Side}
+    n_frames = sum(len(ds) for ds in datasets.values())
+    ds0 = datasets[Side.LEFT]
+    view = (ds0.get_render_intrinsic_matrices()[0], ds0.transforms.extrinsics_wc[0],
+            int(ds0.widths[0]), int(ds0.heights[0]))
+    first_s, again_s = [], []
+    for _ in range(5):
+        vol = TSDFVolume(run.volume.cfg, run.volume.state)
+        for times in (first_s, again_s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raycast.raycast_depth(vol, *view)
+            times.append(time.perf_counter() - t0)
+    prep_s = float(np.median(first_s) - np.median(again_s))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ds in datasets.values():
+        list(raycast.raycast_in_color_view(vol, ds, frames_per_batch=16))
+    torch.cuda.synchronize()
+    ray_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    log(f"[phase 6] device parts: marching cubes {mc_s} s, component labels {label_s} s "
+        f"(step 4's filter, then the one after baking), scene prep {prep_s:.4f} s "
+        f"(median first render of a new volume object {np.median(first_s):.4f} s less the "
+        f"median second {np.median(again_s):.4f} s), raycast {ray_ms:.2f} ms "
+        f"per frame ({n_frames} frames {scene.color_width}x{scene.color_height}, "
+        f"readback included)")
+
+    # Rendered depth against the analytic box depth at the refined poses.
+    hits, errs, n_px = 0, [], 0
+    for side, ds in datasets.items():
+        K = ds.get_render_intrinsic_matrices()
+        T_cw = ds.transforms.extrinsics_cw.astype(np.float64)
+        for i, ts in enumerate(ds.timestamps):
+            z = data_io.rgbd.load_color_aligned_depth(side, int(ts))
+            gt = render_box_depth(T_cw[i], K[i, 0, 0], K[i, 1, 1], K[i, 0, 2], K[i, 1, 2],
+                                  int(ds.widths[i]), int(ds.heights[i]),
+                                  scene.box_min, scene.box_max)
+            m = np.isfinite(gt)
+            hit = m & np.isfinite(z)
+            n_px += int(m.sum())
+            hits += int(hit.sum())
+            errs.append(np.abs(z[hit] - gt[hit]))
+    err = np.concatenate(errs)
+    hit_share = hits / max(n_px, 1)
+    log(f"[phase 6] rendered vs analytic depth over {n_frames} frames: hit share "
+        f"{hit_share:.4f}, |err| median {np.median(err) * 1e3:.4f} mm, p95 "
+        f"{np.quantile(err, 0.95) * 1e3:.4f} mm")
+
+    n_opt = {side: len(ds) for side, ds in datasets.items()}
+    checks = {
+        "colorless_mesh_raw.ply, colorless_mesh_clean.ply, color_mesh.ply, color.ply exist":
+            all((recon / n).is_file() for n in MESHES + ("color.ply",)),
+        "optimised colour datasets exist": all(ds is not None for ds in datasets.values()),
+        "one depth map per optimised frame": all(
+            len(list(data_io.rgbd.rgbd_path_config.get_color_aligned_depth_dir(side)
+                     .glob("*.npy"))) == n for side, n in n_opt.items()),
+        "mesh on the walls (p99 < 2 voxels)": float(np.quantile(dist, 0.99)) < 2 * vs,
+        "colored points == 2 x vertices": len(pcd.points) == 2 * len(mesh.vertices),
+        "depth hit share > 0.9": hit_share > 0.9,
+        "depth median |err| < 1 mm": float(np.median(err)) < 1e-3,
+        "last GN residual <= first": res_last <= res_first,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"colored path checks failed: {failed}")
 
 
 def main() -> None:
@@ -405,6 +622,7 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     kernels = [check_k1(rng), check_k2(rng), check_k3()]
     check_gray()
+    time_fma(rng)
     kernels[2]["launches"] = probe_path()
     log(f"[phase 2] done in {time.perf_counter() - t0:.1f} s")
 
@@ -425,6 +643,10 @@ def main() -> None:
         t0 = time.perf_counter()
         small_cpu_vs_card(work)
         log(f"[phase 5] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        colored_path(session, scene)
+        log(f"[phase 6] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

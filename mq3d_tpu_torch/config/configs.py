@@ -310,23 +310,51 @@ PRODUCTION_INTEGRATION = dict(
 )
 
 
-def colorless_recipe(**depth_integration) -> PipelineConfigs:
-    """The colorless reconstruction (the verify recipe): YUV -> PNG, depth ->
-    linear, datasets (step 0, rebuilt) and TSDF integration (step 3), with
-    confidence, pose optimisation, colour optimisation and raycast off and
-    no volume cache.  `depth_integration` fields override the defaults."""
+def _recipe(reconstruction: dict, depth_integration: dict) -> PipelineConfigs:
     return PipelineConfigs.parse({
         "yuv_to_rgb": {},
         "depth_to_linear": {"use_cache": True},
-        "reconstruction": {
+        "reconstruction": dict({
             "device": "cuda",
             "use_dataset_cache": False,
             "use_colorless_vbg_cache": False,
             "estimate_depth_confidences": False,
             "optimize_depth_pose": False,
-            "optimize_color_pose": False,
-            "render_color_aligned_depth": False,
             "depth_integration": dict({"use_confidence_filtered_depth": False},
                                       **depth_integration),
-        },
+        }, **reconstruction),
     })
+
+
+def colorless_recipe(**depth_integration) -> PipelineConfigs:
+    """The colorless reconstruction (the verify recipe): YUV -> PNG, depth ->
+    linear, datasets (step 0, rebuilt) and TSDF integration (step 3), with
+    confidence, pose optimisation, colour optimisation and raycast off and
+    no volume cache.  `depth_integration` fields override the defaults."""
+    return _recipe({"optimize_color_pose": False, "render_color_aligned_depth": False},
+                   depth_integration)
+
+
+# Colour settings of config/pipeline_config.yml (color_optimization,
+# color_aligned_depth_rendering and the step 5 switches).
+SHIPPED_COLOR_OPTIMIZATION = dict(
+    weight_threshold=1.5, estimated_vertex_number=-1, interval=100, max_iteration=100,
+    use_dataset_cache=False, min_triangle_count=5000)
+
+
+def colored_recipe(color_optimization: dict | None = None,
+                   **depth_integration) -> PipelineConfigs:
+    """The colored reconstruction: the colorless recipe plus colour-map
+    optimisation and point sampling (steps 4-5) and colour-aligned depth
+    rendering (step 6), with confidence and depth pose optimisation (steps
+    1-2) off.  Colour settings are the shipped ones; `color_optimization`
+    fields override them and `depth_integration` fields the TSDF
+    defaults."""
+    return _recipe({
+        "optimize_color_pose": True,
+        "sample_point_cloud_from_colored_mesh": True,
+        "points_per_vertex_ratio": 2.0,
+        "render_color_aligned_depth": True,
+        "color_optimization": dict(SHIPPED_COLOR_OPTIMIZATION, **(color_optimization or {})),
+        "color_aligned_depth_rendering": {"only_use_optimized_dataset": True},
+    }, depth_integration)

@@ -13,19 +13,19 @@ running weighted average tsdf' = (tsdf*w + obs)/(w+1), w' = w + 1.
            block's R^3 voxels, fetch the depth (flat gather, or the
            per-pair depth patch through K1, ops/tsdf_patch.py), sum the
            observations per block in frame order, then merge.
-  Extract  zero-crossing point cloud along +x/+y/+z.
+  Extract  zero-crossing point cloud along +x/+y/+z, and marching cubes with
+           lattice-edge-keyed vertex welding (`_extract_mesh`).
 
 Phase A, Phase B and extraction are plain PyTorch here; the depth fetch of
 `depth_lookup="pallas"` (the form "auto" takes on the card) is K1.
 
 Bit-exactness with the JAX build on the CPU.  XLA's CPU compiler contracts
 `a*b + c` into a fused multiply-add, so the reference's projection and
-merge are FMA chains.  `_fma` reproduces them: the float32 product is exact
-in float64, so rounding the float64 sum to float32 gives the fused result,
-except in rare double-rounding cases (the sum rounded to float64 first can
-land on a float32 midpoint that the exact sum was not on).  The same code
-runs on the card, so the port gives one answer on both devices; there the
-float64 casts cost extra elementwise launches (PERF.md).
+merge are FMA chains.  `_fma` reproduces them exactly: the float32 product
+is exact in float64, and the float64 sum is rounded to odd before it is
+rounded to float32, which gives the singly rounded fused result.  The same
+code runs on the card, so the port gives one answer on both devices; there
+the float64 steps cost extra elementwise launches (PERF.md).
 Divisions never take a Python scalar divisor: CUDA PyTorch turns x / s into
 x * (1/s), which is not the correctly rounded quotient.
 
@@ -36,6 +36,7 @@ Sums per block are taken in frame order without atomics (see
 from __future__ import annotations
 
 import dataclasses
+import math
 from pathlib import Path
 from typing import Optional
 
@@ -43,9 +44,11 @@ import numpy as np
 import torch
 from scipy.linalg import blas, lapack
 
-from mq3d_tpu_torch.dataio.ply import PointCloud
+from mq3d_tpu_torch.dataio.ply import PointCloud, TriangleMesh
 from mq3d_tpu_torch.device import resolve_device
+from mq3d_tpu_torch.ops.mc_tables import CORNERS, build_tables, edge_owner
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
+from mq3d_tpu_torch.utils.log import substep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,18 +183,33 @@ def camera_to_world(extrinsics_wc: np.ndarray) -> np.ndarray:
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c as XLA's fused multiply-add computes it (see module
-    doc): the product is exact in float64, the float64 sum is rounded to
-    float32.  That is the singly rounded fused result except in the rare
-    cases where rounding twice (to float64, then to float32) lands on the
-    other side of a float32 midpoint."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 a*b + c, correctly rounded, as XLA's fused multiply-add
+    computes it (see module doc).
+
+    The float32 product is exact in float64.  The float64 sum s = p + c is
+    rounded to odd: when its TwoSum error e is non-zero and the last
+    mantissa bit of s is 0, s steps one float64 ulp toward e.  A value
+    rounded to odd with 53 >= 24 + 2 bits rounds to float32 as the exact
+    sum would, so the result is the singly rounded one on every device.
+    Where s is inf or NaN, e is NaN and s is kept."""
+    p = a.double() * b
+    s = p + c
+    bp = s - p
+    e = (p - (s - bp)).add_(c - bp)
+    step = (e.abs() > 0).logical_and_((s.view(torch.int64) & 1) == 0)
+    return torch.where(step, torch.nextafter(s, e * math.inf), s).float()
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     """A 0-d float32 tensor on `like`'s device (a divisor that is not a
     Python scalar; see module doc)."""
     return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+# The 7 positive-neighbour block offsets whose faces, edges and corner
+# extend a block by one voxel.
+_NEIGHBOR_OFFSETS = ((1, 0, 0), (0, 1, 0), (0, 0, 1),
+                     (1, 1, 0), (1, 0, 1), (0, 1, 1), (1, 1, 1))
 
 
 def _voxel_offsets(R: int) -> np.ndarray:
@@ -616,6 +634,185 @@ def _to_point_cloud(points: torch.Tensor, normals: torch.Tensor,
     return PointCloud(points=pts, normals=nrm / np.maximum(norm, 1e-12))
 
 
+# ---------------------------------------------------------------------------
+# Marching cubes
+# ---------------------------------------------------------------------------
+
+
+def _mesh_ext_fields(cfg: TSDFConfig, state: TSDFState, weight_threshold: float,
+                     slots: torch.Tensor):
+    """(TB, R+1, R+1, R+1) tsdf/valid fields of blocks `slots` with their +1
+    faces, edges and corner from the 7 positive neighbours, and (TB, 8)
+    slot ids: self, then the neighbours in `_NEIGHBOR_OFFSETS` order
+    (-1 = none)."""
+    R = cfg.block_resolution
+    G = cfg.grid_dim
+    cap = cfg.block_count
+    TB = slots.numel()
+    dev = state.device
+    in_range = slots < state.n_active
+    slots_safe = torch.clamp(slots, max=cap).long()  # sentinel row = zeros
+    coords = state.block_coords[slots_safe]
+    ext_t = torch.zeros((TB, R + 1, R + 1, R + 1), dtype=torch.float32, device=dev)
+    ext_v = torch.zeros((TB, R + 1, R + 1, R + 1), dtype=torch.bool, device=dev)
+    ext_t[:, :R, :R, :R] = state.tsdf[slots_safe].view(TB, R, R, R)
+    ext_v[:, :R, :R, :R] = ((state.weight[slots_safe].view(TB, R, R, R) > weight_threshold)
+                            & in_range[:, None, None, None])
+    minus1 = torch.full_like(slots, -1)
+    nb_slots = [torch.where(in_range, slots, minus1)]
+    for off in _NEIGHBOR_OFFSETS:
+        nb_key = _block_keys(coords + torch.tensor(off, dtype=torch.int32, device=dev), G)
+        nb_slot = state.slot_table[torch.clamp(nb_key, max=G ** 3 - 1)]
+        nb_ok = (nb_key < G ** 3) & (nb_slot >= 0)
+        nb_slots.append(torch.where(nb_ok, nb_slot, minus1))
+        nb_safe = torch.where(nb_ok, nb_slot.long(), torch.full_like(nb_key, cap))
+        src = (slice(None),) + tuple(slice(0, 1) if o else slice(0, R) for o in off)
+        dst = (slice(None),) + tuple(slice(R, R + 1) if o else slice(0, R) for o in off)
+        ext_t[dst] = state.tsdf[nb_safe].view(TB, R, R, R)[src]
+        ext_v[dst] = ((state.weight[nb_safe].view(TB, R, R, R)[src] > weight_threshold)
+                      & nb_ok[:, None, None, None])
+    return coords, ext_t, ext_v, torch.stack(nb_slots, dim=1)
+
+
+def _extract_mesh(cfg: TSDFConfig, state: TSDFState, weight_threshold: float,
+                  n_bucket: int, max_verts: int, max_tris: int):
+    """Marching cubes with edge-key welding over blocks [0, n_bucket), the
+    JAX build's _extract_mesh_jit.
+
+    Per tile of TB = min(128, n_bucket) blocks: build the extended fields,
+    emit (a) crossing-edge vertices with int32 keys
+    (owner_slot * R^3 + voxel) * 4 + axis and (b) triangles as key triples
+    from the MC table.  Both are compacted in the reference's rank order
+    (tile, then axis or triangle slot, then block and voxel) into
+    fixed-capacity buffers; entries past a capacity are dropped, and the
+    counts go on past it, which the caller's retry reads.  Keys resolve to
+    vertex ids with one stable sort and searchsorted.  Returns (verts
+    (3*max_verts,) f32, tri_idx (3*max_tris,) int64 with -1 for unresolved
+    triangles, nv, nt).
+
+    The vertex interpolation is (g + frac) * voxel, which XLA does not
+    contract into a fused multiply-add, so the vertices are the
+    reference's bit for bit."""
+    R = cfg.block_resolution
+    R3 = cfg.r3
+    vs = cfg.voxel_size
+    dev = state.device
+    TB = min(128, n_bucket)
+    n_tiles = (n_bucket + TB - 1) // TB
+
+    tri_table, _ = build_tables()
+    tri15 = torch.from_numpy(tri_table[:, :15].astype(np.int64)).to(dev)  # (256, 15)
+    owner = torch.from_numpy(edge_owner().astype(np.int64)).to(dev)  # (12, 4)
+    lx = torch.from_numpy(_voxel_offsets(R).astype(np.int64)).to(dev)  # (R^3, 3)
+    # over_x*4 + over_y*2 + over_z -> nb_slots column (0 = self).
+    nb_code = torch.tensor(
+        [0 if o == (0, 0, 0) else 1 + _NEIGHBOR_OFFSETS.index(o)
+         for o in ((x, y, z) for x in (0, 1) for y in (0, 1) for z in (0, 1))],
+        dtype=torch.int64, device=dev)
+
+    out_v = torch.zeros((max_verts, 3), dtype=torch.float32, device=dev)
+    out_vk = torch.full((max_verts,), torch.iinfo(torch.int32).max, dtype=torch.int32,
+                        device=dev)
+    out_tk = torch.zeros((max_tris, 3), dtype=torch.int32, device=dev)
+    nv = nt = 0
+    half = torch.full((), 0.5, dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+
+    for t in range(n_tiles):
+        slots = torch.arange(t * TB, (t + 1) * TB, dtype=torch.int32, device=dev)
+        block_ok = (slots < state.n_active)[:, None, None, None]
+        coords, ext_t, ext_v, nb_slots = _mesh_ext_fields(
+            cfg, state, weight_threshold, slots)
+
+        # -- vertices: crossings along each axis, in (block, voxel) order ------
+        t0 = ext_t[:, :R, :R, :R]
+        v0 = ext_v[:, :R, :R, :R]
+        for axis in range(3):
+            sl = [slice(0, R)] * 3
+            sl[axis] = slice(1, R + 1)
+            t1 = ext_t[(slice(None),) + tuple(sl)]
+            v1 = ext_v[(slice(None),) + tuple(sl)]
+            cross = v0 & v1 & (t0 * t1 < 0) & block_ok
+            b, v = torch.nonzero(cross.reshape(TB, R3), as_tuple=True)
+            count = b.numel()
+            k = min(count, max(max_verts - nv, 0))
+            if k:
+                b, v = b[:k], v[:k]
+                a = t0.reshape(TB, R3)[b, v]
+                denom = a - t1.reshape(TB, R3)[b, v]
+                frac = torch.where(denom.abs() > 1e-20,
+                                   a / torch.where(denom == 0, one, denom), half)
+                comps = []
+                for c in range(3):
+                    comp = (coords[b, c].long() * R + lx[v, c]).float()
+                    if c == axis:
+                        comp = comp + torch.clamp(frac, 0.0, 1.0)
+                    comps.append(comp * vs)
+                out_v[nv:nv + k] = torch.stack(comps, dim=-1)
+                out_vk[nv:nv + k] = (((slots[b].long() * R3 + v) << 2) | axis).to(torch.int32)
+            nv += count
+
+        # -- triangles: cube configs + MC table ---------------------------------
+        config = torch.zeros((TB, R, R, R), dtype=torch.int64, device=dev)
+        cube_ok = block_ok
+        for c in range(8):
+            dx, dy, dz = (int(x) for x in CORNERS[c])
+            corner = (slice(None), slice(dx, dx + R), slice(dy, dy + R), slice(dz, dz + R))
+            cube_ok = cube_ok & ext_v[corner]
+            config |= (ext_t[corner] < 0).long() << c
+        config = config.reshape(-1)
+        # Configs 0 and 255 (and cubes that are not ok) have no triangle.
+        cube = torch.nonzero(cube_ok.reshape(-1) & (config != 0) & (config != 255),
+                             as_tuple=True)[0]
+        # (5, 3, A) edge ids per triangle slot and corner; the owner of an
+        # edge is the cube voxel plus the edge's start offset, which lives in
+        # a face/edge/corner neighbour when it passes R-1.
+        e = tri15[config[cube]].T.reshape(5, 3, -1)
+        oc = owner[torch.clamp(e, min=0)]  # (5, 3, A, 4)
+        vox = lx[cube % R3]  # (A, 3)
+        over_code = torch.zeros_like(e)
+        local = torch.zeros_like(e)
+        for c in range(3):
+            ov = vox[:, c] + oc[..., c]
+            over = (ov >= R).long()
+            over_code = over_code * 2 + over
+            local = local * R + (ov - over * R)
+        owner_slot = nb_slots.reshape(-1)[(cube // R3) * 8 + nb_code[over_code]].long()
+        tri_keys = ((owner_slot * R3 + local) << 2) | oc[..., 3]  # (5, 3, A)
+        valid = (e[:, 0] >= 0) & (owner_slot >= 0).all(dim=1)  # (5, A), s-major
+        sel = torch.nonzero(valid.reshape(-1), as_tuple=True)[0]
+        k = min(sel.numel(), max(max_tris - nt, 0))
+        if k:
+            keys = tri_keys.permute(0, 2, 1).reshape(-1, 3)[sel[:k]]
+            out_tk[nt:nt + k] = keys.to(torch.int32)
+        nt += sel.numel()
+
+    # -- resolve triangle edge keys -> vertex indices ---------------------------
+    out_tk = out_tk.reshape(-1)
+    keys_sorted, order = torch.sort(out_vk, stable=True)
+    pos = torch.clamp(torch.searchsorted(keys_sorted, out_tk), max=max_verts - 1)
+    found = keys_sorted[pos] == out_tk
+    tri_idx = torch.where(found, order[pos], torch.zeros_like(pos))
+    tri_ok = (found[0::3] & found[1::3] & found[2::3]).repeat_interleave(3)
+    tri_idx = torch.where(tri_ok, tri_idx, torch.full_like(tri_idx, -1))
+    return out_v.reshape(-1), tri_idx, nv, nt
+
+
+def _mesh_vertex_normals(verts: np.ndarray, tris: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals (host, float64, in triangle order)."""
+    if len(tris) == 0:
+        return np.zeros_like(verts)
+    p0 = verts[tris[:, 0]]
+    p1 = verts[tris[:, 1]]
+    p2 = verts[tris[:, 2]]
+    fn = np.cross(p1 - p0, p2 - p0)
+    normals = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(normals, tris[:, k], fn)
+    norm = np.linalg.norm(normals, axis=-1, keepdims=True)
+    return normals / np.maximum(norm, 1e-12)
+
+
 def fresh_integrate_extract(cfg: TSDFConfig, depth, intrinsics, extrinsics_wc,
                             frame_valid, weight_threshold: float = 3.0,
                             max_points: int = 2_097_152, device="cuda"):
@@ -655,7 +852,20 @@ class TSDFVolume:
     def __init__(self, cfg: TSDFConfig, state: Optional[TSDFState] = None,
                  device="cuda"):
         self.cfg = cfg
+        self._state_version = 0
         self.state = state if state is not None else create_state(cfg, device)
+
+    @property
+    def state(self) -> TSDFState:
+        return self._state
+
+    @state.setter
+    def state(self, value: TSDFState):
+        # Revision for caches keyed on the volume's contents (the raycast
+        # scene prep); integrate() and reset() bump it too, since they
+        # update the state in place.
+        self._state = value
+        self._state_version += 1
 
     @property
     def device(self) -> torch.device:
@@ -673,6 +883,7 @@ class TSDFVolume:
         st.tsdf.zero_()
         st.weight.zero_()
         st.n_active = st.overflow = st.dropped_active = 0
+        self._state_version += 1
         return self
 
     # -- integration ------------------------------------------------------------
@@ -701,6 +912,7 @@ class TSDFVolume:
         )
         T_cw = torch.from_numpy(camera_to_world(T_wc_host)).to(dev)
         st = self.state
+        self._state_version += 1
         if not auto_split:
             integrate_chunk(self.cfg, st, *args, 0, T_cw)
             return self
@@ -868,10 +1080,150 @@ class TSDFVolume:
             return _to_point_cloud(pts, nrm, max_points)
         return self._extract_point_cloud_host(weight_threshold)
 
-    def extract_triangle_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "marching cubes is not ported yet (ROADMAP.md, queue A: "
-            "marching cubes and mc_tables)")
+    def extract_triangle_mesh(self, weight_threshold: float = 3.0,
+                              estimated_vertex_number: int = -1,
+                              device: bool = True, max_verts: int = 4_194_304,
+                              max_tris: int = 8_388_608) -> TriangleMesh:
+        """Marching cubes over valid voxels with lattice-edge-keyed vertex
+        welding (crack-free across block boundaries).
+
+        device=True runs the tables, crossing interpolation and key
+        resolution on the volume's device (`_extract_mesh`, plain PyTorch);
+        device=False runs the numpy host path, the parity oracle.  Neither
+        falls back to the other."""
+        del estimated_vertex_number  # capacity hint irrelevant here
+        if self.n_active == 0:
+            return TriangleMesh(np.zeros((0, 3)), np.zeros((0, 3), np.int64))
+        if device:
+            return self._extract_triangle_mesh_device(weight_threshold, max_verts, max_tris)
+        return self._extract_triangle_mesh_host(weight_threshold)
+
+    def _extract_triangle_mesh_device(self, weight_threshold: float, max_verts: int,
+                                      max_tris: int) -> TriangleMesh:
+        n_bucket = 128
+        while n_bucket < self.n_active:
+            n_bucket *= 2
+        n_bucket = min(n_bucket, self.cfg.block_count)
+        # Occupancy-proportional buffers: a surface block contributes ~3*R^2
+        # welded vertices and ~2x that in triangles; retry at the ceiling if
+        # the estimate truncates.
+        R = self.cfg.block_resolution
+        v_ceil, t_ceil = max_verts, max_tris
+        cap_v = 4096
+        while cap_v < 8 * R * R * max(self.n_active, 1):
+            cap_v *= 2
+        max_verts = min(cap_v, v_ceil)
+        max_tris = min(2 * max_verts, t_ceil)
+
+        def run(max_verts, max_tris):
+            return _extract_mesh(self.cfg, self.state, weight_threshold, n_bucket,
+                                 max_verts, max_tris)
+
+        # The device part, its readback included (the host waits for it).
+        with substep("extract_triangle_mesh.device"):
+            verts, tri_idx, nv, nt = run(max_verts, max_tris)
+            if ((nv > max_verts and max_verts < v_ceil)
+                    or (nt > max_tris and max_tris < t_ceil)):
+                while max_verts < min(nv, v_ceil) or max_tris < min(nt, t_ceil):
+                    max_verts = min(2 * max_verts, v_ceil)
+                    max_tris = min(2 * max_tris, t_ceil)
+                verts, tri_idx, nv, nt = run(max_verts, max_tris)
+            if nv > max_verts or nt > max_tris:
+                print(f"[Warning] device mesh extraction truncated "
+                      f"({nv}/{max_verts} verts, {nt}/{max_tris} tris)")
+                nv = min(nv, max_verts)
+                nt = min(nt, max_tris)
+            verts = verts[: nv * 3].cpu().numpy()
+            tris = tri_idx[: nt * 3].cpu().numpy().reshape(-1, 3)
+        verts = verts.astype(np.float64).reshape(-1, 3)
+        tris = tris[(tris >= 0).all(axis=1) & (tris < nv).all(axis=1)]
+        # Drop unreferenced vertices (edges valid between voxel pairs that
+        # belong to no fully valid cube).
+        used = np.zeros(nv, bool)
+        if len(tris):
+            used[tris.reshape(-1)] = True
+        remap = np.full(nv, -1, np.int64)
+        remap[used] = np.arange(used.sum())
+        mesh = TriangleMesh(
+            vertices=verts[used],
+            triangles=remap[tris] if len(tris) else np.zeros((0, 3), np.int64))
+        mesh.vertex_normals = _mesh_vertex_normals(mesh.vertices, mesh.triangles)
+        return mesh
+
+    def _extract_triangle_mesh_host(self, weight_threshold: float) -> TriangleMesh:
+        """The numpy marching cubes of the JAX build's host path: welds
+        vertices by 64-bit lattice-edge keys and interpolates in float64."""
+        R = self.cfg.block_resolution
+        empty = TriangleMesh(np.zeros((0, 3)), np.zeros((0, 3), np.int64))
+        tri_table, _ = build_tables()
+        coords, ext_t, ext_v = self._extended_fields(weight_threshold)
+        n = len(coords)
+        corner_t = np.empty((n, R, R, R, 8), np.float32)
+        corner_v = np.empty((n, R, R, R, 8), bool)
+        for k in range(8):
+            dx, dy, dz = CORNERS[k]
+            corner_t[..., k] = ext_t[:, dx:dx + R, dy:dy + R, dz:dz + R]
+            corner_v[..., k] = ext_v[:, dx:dx + R, dy:dy + R, dz:dz + R]
+        config = np.zeros((n, R, R, R), np.int32)
+        for k in range(8):
+            config |= (corner_t[..., k] < 0).astype(np.int32) << k
+        config = np.where(corner_v.all(axis=-1), config, 0)
+        active = np.nonzero((config != 0) & (config != 255))
+        if len(active[0]) == 0:
+            return empty
+        cfgs = config[active]
+        cube_g = coords[active[0]] * R + np.stack(active[1:], -1)  # (A, 3)
+        owner = edge_owner()
+        te = tri_table[cfgs][:, :15].reshape(-1, 5, 3)
+        A = len(cfgs)
+        tsel = np.nonzero(te[..., 0] >= 0)
+        tri_e = te[tsel]  # (T, 3) cube-local edge ids
+        tri_cube = np.repeat(np.arange(A), 5).reshape(A, 5)[tsel]
+        g = cube_g[tri_cube][:, None, :] + owner[tri_e][..., :3]  # (T, 3, 3)
+        OFF = 1 << 14
+        key = (((g[..., 0] + OFF).astype(np.int64) << 34)
+               | ((g[..., 1] + OFF).astype(np.int64) << 19)
+               | ((g[..., 2] + OFF).astype(np.int64) << 4)
+               | owner[tri_e][..., 3].astype(np.int64))
+        uniq, inverse = np.unique(key.reshape(-1), return_inverse=True)
+        triangles = inverse.reshape(-1, 3).astype(np.int64)
+        ug = np.stack([(uniq >> 34) - OFF, ((uniq >> 19) & 0x7FFF) - OFF,
+                       ((uniq >> 4) & 0x7FFF) - OFF], -1).astype(np.int64)
+        uaxis = (uniq & 0xF).astype(np.int64)
+        t_start, t_end = self._sample_tsdf_pairs(ug, uaxis)
+        denom = t_start - t_end
+        frac = np.where(np.abs(denom) > 1e-12,
+                        t_start / np.where(denom == 0, 1, denom), 0.5)
+        verts = ug.astype(np.float64)
+        verts[np.arange(len(uniq)), uaxis] += np.clip(frac, 0.0, 1.0)
+        verts *= self.cfg.voxel_size
+        good = ((triangles[:, 0] != triangles[:, 1]) & (triangles[:, 1] != triangles[:, 2])
+                & (triangles[:, 0] != triangles[:, 2]))
+        mesh = TriangleMesh(vertices=verts, triangles=triangles[good])
+        mesh.vertex_normals = _mesh_vertex_normals(verts, mesh.triangles)
+        return mesh
+
+    def _sample_tsdf_pairs(self, g: np.ndarray, axis: np.ndarray):
+        """tsdf values at lattice voxel g and its +1 neighbour along axis."""
+        R = self.cfg.block_resolution
+        G = self.cfg.grid_dim
+        coords, tsdf, _, slot_table = self._host_fields()
+        n = len(coords)
+        flat_t = np.concatenate([tsdf.reshape(n, -1), np.zeros((1, R ** 3), np.float32)])
+
+        def sample(gv):
+            b = np.floor_divide(gv, R)
+            local = gv - b * R
+            shifted = b + G // 2
+            ok = np.all((shifted >= 0) & (shifted < G), axis=-1)
+            key = (shifted[:, 0] * G + shifted[:, 1]) * G + shifted[:, 2]
+            slot = np.where(ok, slot_table[np.clip(key, 0, G ** 3 - 1)], -1)
+            slot = np.where(slot >= 0, slot, n)
+            return flat_t[slot, (local[:, 0] * R + local[:, 1]) * R + local[:, 2]]
+
+        g2 = g.copy()
+        g2[np.arange(len(g)), axis] += 1
+        return sample(g), sample(g2)
 
     def _host_fields(self):
         n = self.n_active
@@ -901,8 +1253,7 @@ class TSDFVolume:
             key = (shifted[:, 0] * G + shifted[:, 1]) * G + shifted[:, 2]
             return np.where(ok, slot_table[np.clip(key, 0, G ** 3 - 1)], -1)
 
-        for off in [(1, 0, 0), (0, 1, 0), (0, 0, 1),
-                    (1, 1, 0), (1, 0, 1), (0, 1, 1), (1, 1, 1)]:
+        for off in _NEIGHBOR_OFFSETS:
             nb = slots_of(coords + np.asarray(off, np.int32))
             has = nb >= 0
             src = np.clip(nb, 0, max(n - 1, 0))

@@ -121,10 +121,12 @@ class PipelineRun:
 
 def run_full_pipeline(session_dir: Path, config: Union[Path, str, PipelineConfigs],
                       device="cuda", force_recompute: bool = False) -> PipelineRun:
-    """YUV->RGB, depth->linear and reconstruction (steps 0 and 3) of one
-    capture session on `device`: writes reconstruction/colorless_vbg.npz and
-    reconstruction/colorless.ply.  Returns the seconds of each stage and the
-    volume."""
+    """YUV->RGB, depth->linear and reconstruction (steps 0 and 3-6, as the
+    config switches them) of one capture session on `device`: writes
+    reconstruction/colorless_vbg.npz and colorless.ply and, with the colour
+    steps on, the meshes, the colored point cloud, the optimised colour
+    frame tables and the color-aligned depth maps.  Returns the seconds of
+    each stage and the volume."""
     timer = StageTimer()
     processor = PipelineProcessor(
         project_dir=Path(session_dir), config=config,

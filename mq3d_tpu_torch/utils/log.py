@@ -33,7 +33,7 @@ def substep(name: str):
             yield
     finally:
         if os.environ.get("MQ3D_SUBSTEP_TIMING"):
-            print(f"[Substep] {name}: {time.perf_counter() - t0:.2f}s", flush=True)
+            print(f"[Substep] {name}: {time.perf_counter() - t0:.3f}s", flush=True)
 
 
 class StageTimer:

@@ -10,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "mq3d_tpu", "pandas", "cv2", "PIL", "yaml", "tqdm")
 
@@ -41,6 +43,21 @@ def test_port_imports_without_forbidden_packages():
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.strip().splitlines()[-1]) > 40
+
+
+@pytest.mark.parametrize("module", [
+    "mq3d_tpu_torch.ops.mc_tables", "mq3d_tpu_torch.ops.mesh_filter",
+    "mq3d_tpu_torch.ops.raycast", "mq3d_tpu_torch.recon.color_opt",
+    "mq3d_tpu_torch.ops.sampling"])
+def test_slice3_modules_import_under_the_guard(module):
+    """The modules of reconstruction steps 4-6, each alone in a fresh
+    interpreter under the guard (the walk above imports them too)."""
+    walk = _SCRIPT[_SCRIPT.index("names = "):_SCRIPT.index("for name in names")]
+    script = _SCRIPT.replace(walk, f"names = [{module!r}]\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "1"
 
 
 def test_guard_refuses_a_forbidden_import():

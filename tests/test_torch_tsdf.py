@@ -266,8 +266,19 @@ def test_reset_and_mesh_not_ported():
     assert tv.n_active > 0
     tv.reset()
     assert tv.n_active == 0 and not tv.state.weight.any() and (tv.state.slot_table == -1).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tv.extract_triangle_mesh()
+    # Marching cubes is ported: empty after the reset, and after a frame is
+    # integrated again, the JAX package's mesh of that frame bit for bit.  The
+    # wall moves off the voxel lattice (1 m is a voxel plane, where the
+    # tsdf is exactly 0 and neither device path finds a sign change).
+    assert len(tv.extract_triangle_mesh(0.5).triangles) == 0
+    depth = depth + np.float32(0.013)
+    tv.integrate(depth, K, T)
+    jv = JaxVolume(JaxConfig(**_overflow_kw(chunk_active_capacity=2048)))
+    jv.integrate(depth, K, T)
+    jm, tm = jv.extract_triangle_mesh(0.5), tv.extract_triangle_mesh(0.5)
+    assert len(tm.triangles) > 100
+    for k in ("vertices", "triangles", "vertex_normals"):
+        np.testing.assert_array_equal(getattr(tm, k), getattr(jm, k), err_msg=k)
 
 
 def test_integrate_chunks_matches_jax(depth_data):
