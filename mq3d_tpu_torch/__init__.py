@@ -7,9 +7,11 @@ counterpart of the same name there:
   models/    frame-table datasets and pose tables (numpy, npz IO)
   config/    YAML pipeline configs (yaml imported lazily) + project layout
   dataio/    project-directory IO: raw frames, PNG, npz, PLY
-  ops/       compute on tensors: YUV->BGR, depth, TSDF integration/extraction
+  ops/       compute on tensors: YUV->BGR, depth, TSDF integration/extraction,
+             meshes, raycast, odometry, ICP, pose graphs
   kernels/   the nvcc build of csrc/*.cu, its ctypes binding, launch counts
-  recon/     chunked integration and the reconstruction orchestrator
+  recon/     confidence, fragments and scene refinement, chunked integration,
+             colour optimisation and the reconstruction orchestrator
   pipeline/  YUV->RGB, depth->linear and reconstruction stages
 
 The package imports torch, numpy and the standard library only (scipy where

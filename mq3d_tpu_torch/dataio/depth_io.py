@@ -9,6 +9,7 @@ Descriptor CSVs are parsed without pandas (dataio/csv_io.py).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -190,6 +191,99 @@ class DepthDataIO:
                 p.unlink()
             except FileNotFoundError:
                 pass
+
+    def start_confidence_pack(self, side: Side, timestamps, conf_shape,
+                              conf_dtype, cnt_shape, cnt_dtype):
+        """Streamed pack writer for the estimation path: rows are written
+        from the in-memory results as they are computed, in timestamp
+        order whatever order they arrive in.  Usage:
+
+            w = io.start_confidence_pack(side, ts, ...)
+            w.write(i, conf, cnt)   # row i of `timestamps`, any order, once
+            w.finalize()            # publishes the pack, timestamps last
+        """
+        ts = np.asarray(timestamps, np.int64)
+        order = np.argsort(ts, kind="stable")
+        ts_path, conf_path, cnt_path = self._confidence_pack_paths(side)
+        ts_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp_conf = conf_path.with_suffix(".tmp.npy")
+        tmp_cnt = cnt_path.with_suffix(".tmp.npy")
+        n = len(ts)
+        conf_mm = np.lib.format.open_memmap(
+            tmp_conf, mode="w+", dtype=conf_dtype, shape=(n,) + tuple(conf_shape))
+        cnt_mm = np.lib.format.open_memmap(
+            tmp_cnt, mode="w+", dtype=cnt_dtype, shape=(n,) + tuple(cnt_shape))
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n)
+        io = self
+
+        class _Writer:
+            def write(self, i: int, conf, cnt) -> None:
+                conf_mm[rank[i]] = conf
+                cnt_mm[rank[i]] = cnt
+
+            def finalize(self) -> None:
+                conf_mm.flush()
+                cnt_mm.flush()
+                os.replace(tmp_conf, conf_path)
+                os.replace(tmp_cnt, cnt_path)
+                np.save(ts_path, ts[order])
+                io._confidence_pack.pop(side, None)
+
+        return _Writer()
+
+    def build_confidence_pack(self, side: Side) -> bool:
+        """Pack every per-frame confidence npz of `side` into the mmap-able
+        .npy stacks, streaming frame by frame.  Returns False when there is
+        no per-frame map.  A map of another shape than the first is left
+        out of the pack (the per-frame read still serves it).  Prefer
+        start_confidence_pack on the estimation path: this rebuild decodes
+        every npz again and is for repair."""
+        self._confidence_pack.pop(side, None)
+        dir_path = self.depth_path_config.get_depth_confidence_map_dir_path(side)
+        if not dir_path.exists():
+            return False
+        ts = sorted(int(p.stem) for p in dir_path.glob("*.npz") if p.stem.isdigit())
+        if not ts:
+            return False
+        path_of = self.depth_path_config.get_depth_confidence_map_path
+        first = np.load(path_of(side, ts[0]))
+        conf0, cnt0 = first["confidence_map"], first["valid_count"]
+        n = len(ts)
+        ts_path, conf_path, cnt_path = self._confidence_pack_paths(side)
+        ts_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp_conf = conf_path.with_suffix(".tmp.npy")
+        tmp_cnt = cnt_path.with_suffix(".tmp.npy")
+        conf_mm = np.lib.format.open_memmap(
+            tmp_conf, mode="w+", dtype=conf0.dtype, shape=(n,) + conf0.shape)
+        cnt_mm = np.lib.format.open_memmap(
+            tmp_cnt, mode="w+", dtype=cnt0.dtype, shape=(n,) + cnt0.shape)
+        kept = []
+        try:
+            for t in ts:
+                data = np.load(path_of(side, t))
+                cm = data["confidence_map"]
+                if cm.shape != conf0.shape:
+                    print(f"[Warning] Confidence map {t} shape {cm.shape} != "
+                          f"pack shape {conf0.shape}; leaving it out of the pack")
+                    continue
+                conf_mm[len(kept)] = cm
+                cnt_mm[len(kept)] = data["valid_count"]
+                kept.append(t)
+            conf_mm.flush()
+            cnt_mm.flush()
+        except BaseException:
+            del conf_mm, cnt_mm
+            tmp_conf.unlink(missing_ok=True)
+            tmp_cnt.unlink(missing_ok=True)
+            raise
+        del conf_mm, cnt_mm
+        # Timestamps last: their file marks the pack complete.  Left-out
+        # maps leave spare rows at the end, which the reader slices off.
+        os.replace(tmp_conf, conf_path)
+        os.replace(tmp_cnt, cnt_path)
+        np.save(ts_path, np.asarray(kept, np.int64))
+        return True
 
     def _open_confidence_pack(self, side: Side):
         """(timestamps, conf_mmap, cnt_mmap) or None."""

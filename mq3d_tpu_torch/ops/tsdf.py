@@ -245,6 +245,40 @@ def _rotate_add(R: torch.Tensor, x, y, z, t):
     return _fma(R[2], z, _fma(R[0], x, R[1] * y)) + t
 
 
+def _apply_pose(p: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """float32 p @ T[:3, :3].T + T[:3, 3] for points p (..., 3) and poses T
+    broadcastable to (..., 4, 4), in the order XLA's CPU dot takes it:
+    fma(p2, R_i2, fma(p1, R_i1, p0 * R_i0)) + t_i."""
+    out = [_fma(p[..., 2], T[..., i, 2], _fma(p[..., 1], T[..., i, 1], p[..., 0] * T[..., i, 0]))
+           + T[..., i, 3] for i in range(3)]
+    return torch.stack(out, dim=-1)
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA converts: saturating to [INT_MIN, INT_MAX],
+    NaN -> 0.  A plain cast of an out-of-range float gives INT_MIN on the
+    CPU and saturates on the card."""
+    x = torch.nan_to_num(x, nan=0.0)
+    # 2147483520 is the largest float32 below 2^31.
+    out = x.clamp(-2.0 ** 31, 2147483520.0).to(torch.int32)
+    return torch.where(x >= 2.0 ** 31, torch.iinfo(torch.int32).max, out)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt, correctly rounded on every device.  The card's float32
+    sqrt is not (it is one ulp off the CPU's on some inputs); its float64
+    sqrt is, and rounding that to float32 keeps it correct
+    (53 >= 2 * 24 + 2)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """float32 |v| over the last axis (size 3) as XLA's CPU reduction
+    contracts it: sqrt(fma(v2, v2, fma(v1, v1, v0 * v0))), elementwise, so
+    the same on every device."""
+    return _sqrt(_fma(v[..., 2], v[..., 2], _fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])))
+
+
 def _resolve_lookup(cfg: TSDFConfig, device: torch.device) -> str:
     if cfg.depth_lookup == "auto":
         return "pallas" if device.type == "cuda" else "flat"

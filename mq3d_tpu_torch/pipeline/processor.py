@@ -20,7 +20,7 @@ from mq3d_tpu_torch.device import resolve_device
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
 from mq3d_tpu_torch.pipeline.stages import convert_depth_directory, convert_yuv_directory
-from mq3d_tpu_torch.recon.reconstruct import check_supported, reconstruct_scene
+from mq3d_tpu_torch.recon.reconstruct import reconstruct_scene
 from mq3d_tpu_torch.utils.log import StageTimer
 
 
@@ -37,7 +37,6 @@ class PipelineProcessor:
         self.pipeline_configs = (
             config if isinstance(config, PipelineConfigs)
             else PipelineConfigs.parse_config_yml(Path(config)))
-        check_supported(self.pipeline_configs.reconstruction)
         self.project_dir = project_dir
         self.force_recompute = force_recompute
 
@@ -121,8 +120,9 @@ class PipelineRun:
 
 def run_full_pipeline(session_dir: Path, config: Union[Path, str, PipelineConfigs],
                       device="cuda", force_recompute: bool = False) -> PipelineRun:
-    """YUV->RGB, depth->linear and reconstruction (steps 0 and 3-6, as the
-    config switches them) of one capture session on `device`: writes
+    """YUV->RGB, depth->linear and reconstruction (steps 0-6, as the config
+    switches them) of one capture session on `device`: writes the
+    confidence maps and the optimized depth frame tables with steps 1-2 on,
     reconstruction/colorless_vbg.npz and colorless.ply and, with the colour
     steps on, the meshes, the colored point cloud, the optimised colour
     frame tables and the color-aligned depth maps.  Returns the seconds of

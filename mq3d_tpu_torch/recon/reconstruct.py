@@ -1,18 +1,16 @@
-"""Scene reconstruction orchestrator: steps 0 and 3-6 of the JAX build.
+"""Scene reconstruction orchestrator: steps 0-6 of the JAX build.
 
 Counterpart of mq3d_tpu/recon/reconstruct.py:
 
   0. dataset generation (depth + color frame tables)
+  1. depth confidence estimation (batched reprojection)
+  2. depth pose optimization (fragments + scene pose graph)
   3. TSDF integration of both sides into one volume, then
      reconstruction/colorless_vbg.npz and reconstruction/colorless.ply
   4. color map optimization: marching cubes, the component filter, the
      photometric pose refinement and vertex-color baking
   5. point sampling from the colored mesh
   6. color-aligned depth rendering (TSDF raycast)
-
-Steps 1 (depth confidence) and 2 (depth pose optimization) are not ported
-yet: switching one on raises NotImplementedError naming its ROADMAP.md
-item, never a silent skip.
 """
 
 from __future__ import annotations
@@ -33,6 +31,8 @@ from mq3d_tpu_torch.ops.raycast import raycast_in_color_view
 from mq3d_tpu_torch.ops.sampling import sample_points_uniformly
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
 from mq3d_tpu_torch.recon.color_opt import optimize_color_pose
+from mq3d_tpu_torch.recon.confidence import estimate_depth_confidences
+from mq3d_tpu_torch.recon.depth_pose_optimizer import DepthPoseOptimizer
 from mq3d_tpu_torch.recon.integrate import integrate_extract_small, integrate_multi
 from mq3d_tpu_torch.utils.log import log_step, substep
 
@@ -41,25 +41,11 @@ from mq3d_tpu_torch.utils.log import log_step, substep
 # headless; it emits the same markers and keeps the total here.
 LAST_VIEW_SECONDS = 0.0
 
-_NOT_PORTED = {
-    "estimate_depth_confidences": "queue A: confidence (B9)",
-    "optimize_depth_pose": "queue A: the pose stack (B10-B11)",
-}
-
 
 def _emit_view_seconds(tag: str, seconds: float) -> None:
     global LAST_VIEW_SECONDS
     LAST_VIEW_SECONDS += seconds
     print(f"[VIS] {tag}_VIEW_SECONDS: {seconds:.3f}")
-
-
-def check_supported(config: ReconstructionConfig) -> None:
-    """Raise NotImplementedError for a switched-on step this port lacks."""
-    for flag, item in _NOT_PORTED.items():
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"reconstruction.{flag} is on, but that step is not ported to "
-                f"mq3d_tpu_torch yet (ROADMAP.md {item}); switch it off")
 
 
 def load_depth_datasets(data_io: DataIO, config: ReconstructionConfig
@@ -78,10 +64,10 @@ def load_depth_datasets(data_io: DataIO, config: ReconstructionConfig
 
 def reconstruct_scene(data_io: DataIO, config: ReconstructionConfig,
                       device="cuda") -> Optional[TSDFVolume]:
-    """Steps 0 and 3-6 on `device`; returns the volume (None if empty)."""
+    """Steps 0-6, as the config switches them, on `device`; returns the
+    volume (None if empty)."""
     global LAST_VIEW_SECONDS
     LAST_VIEW_SECONDS = 0.0
-    check_supported(config)
 
     # Step 0: dataset generation
     if not config.use_dataset_cache:
@@ -91,7 +77,22 @@ def reconstruct_scene(data_io: DataIO, config: ReconstructionConfig,
             with substep(f"build_color_dataset[{side.name}]"):
                 data_io.color.load_color_dataset(side=side, use_cache=False)
 
-    depth_dataset_map = load_depth_datasets(data_io, config)
+    # Step 1: depth confidence estimation
+    if config.estimate_depth_confidences:
+        log_step("Estimate depth confidences")
+        with substep("estimate_depth_confidences"):
+            estimate_depth_confidences(depth_data_io=data_io.depth,
+                                       config=config.confidence_estimation, device=device)
+
+    # Step 2: depth pose optimization
+    if config.optimize_depth_pose:
+        optimizer = DepthPoseOptimizer(depth_data_io=data_io.depth,
+                                       recon_data_io=data_io.reconstruction,
+                                       config=config, device=device)
+        with substep("depth_pose_optimizer"):
+            depth_dataset_map = optimizer()
+    else:
+        depth_dataset_map = load_depth_datasets(data_io, config)
 
     # Step 3: TSDF integration
     vbg: Optional[TSDFVolume] = None

@@ -4,9 +4,10 @@
         --session_dir <capture dir> --config <pipeline yml> [--device cpu]
 
 Counterpart of scripts/run_full_pipeline.py of the JAX build: YUV->RGB,
-depth->linear and scene reconstruction (steps 0 and 3) in one process on
-the card (or the CPU with --device cpu), then a pipeline_runtime.txt summary
-in the session directory.
+depth->linear and scene reconstruction (steps 0-6 as the config switches
+them; the default config/pipeline_config.yml turns every one on) in one
+process on the card (or the CPU with --device cpu), then a
+pipeline_runtime.txt summary in the session directory.
 """
 
 from __future__ import annotations

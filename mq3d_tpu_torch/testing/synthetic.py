@@ -53,13 +53,29 @@ class SyntheticSceneConfig:
     box_min: np.ndarray = field(default_factory=lambda: DEFAULT_BOX_MIN.copy())
     box_max: np.ndarray = field(default_factory=lambda: DEFAULT_BOX_MAX.copy())
     t0_ms: int = 1_000_000
+    # Solid axis-aligned boxes inside the room, ((min xyz), (max xyz)) each.
+    clutter: tuple = ()
 
 
-def quest_scene(n_frames: int = 60) -> SyntheticSceneConfig:
+# Furniture for the box room (OPEN3D world, y up, floor at y = -1.2): a
+# cabinet and a shelf on the +x wall, a low table at the -x wall, boxes at
+# the +z and -z walls.  Their faces give every half of the orbit surfaces
+# facing along y and z where the halves overlap, at the +-x walls; the
+# walls alone are parallel planes there, along which fragment ICP slides.
+ROOM_CLUTTER = (
+    ((1.5, -1.2, -0.9), (2.0, 0.2, -0.1)),
+    ((1.7, 0.5, 0.3), (2.0, 0.8, 1.3)),
+    ((-2.0, -1.2, 0.2), (-1.4, -0.4, 1.2)),
+    ((-0.6, -1.2, 1.3), (0.4, -0.6, 2.0)),
+    ((0.8, -1.2, -2.0), (1.6, -0.2, -1.5)),
+)
+
+
+def quest_scene(n_frames: int = 60, clutter: tuple = ()) -> SyntheticSceneConfig:
     """The box room at Quest scale: 320x288 depth (bench.py's capture) and
-    1280x960 colour."""
+    1280x960 colour, with `clutter` boxes inside (ROOM_CLUTTER: furnished)."""
     return SyntheticSceneConfig(n_frames=n_frames, depth_width=320, depth_height=288,
-                                color_width=1280, color_height=960)
+                                color_width=1280, color_height=960, clutter=clutter)
 
 
 def look_rotation_o3d(forward: np.ndarray) -> np.ndarray:
@@ -111,10 +127,12 @@ def _camera_rays(fx, fy, cx_flipped, cy, w, h) -> np.ndarray:
                      np.ones((h, w))], -1)
 
 
-def render_box_depth(pose_cw_o3d, fx, fy, cx_flipped, cy, w, h, box_min, box_max):
-    """Analytic z-depth of the box interior seen from inside.  Pixel (u, v)
-    maps to the camera ray ((u - cx')/fx, (v - cy)/fy, 1), cx' being the
-    mirror-flipped principal point the pipeline uses."""
+def render_box_depth(pose_cw_o3d, fx, fy, cx_flipped, cy, w, h, box_min, box_max,
+                     clutter: tuple = ()):
+    """Analytic z-depth of the box interior seen from inside, and of the
+    solid `clutter` boxes in it.  Pixel (u, v) maps to the camera ray
+    ((u - cx')/fx, (v - cy)/fy, 1), cx' being the mirror-flipped principal
+    point the pipeline uses."""
     d_world = _camera_rays(fx, fy, cx_flipped, cy, w, h) @ pose_cw_o3d[:3, :3].T
     c = pose_cw_o3d[:3, 3]
     t_exit = np.full((h, w), np.inf)
@@ -130,6 +148,14 @@ def render_box_depth(pose_cw_o3d, fx, fy, cx_flipped, cy, w, h, box_min, box_max
             for a in (a for a in range(3) if a != axis):
                 on_face &= (p[..., a] >= box_min[a] - 1e-9) & (p[..., a] <= box_max[a] + 1e-9)
             t_exit = np.minimum(t_exit, np.where(on_face, t, np.inf))
+    for lo, hi in clutter:  # slab test: the entry point of each solid box
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t0 = (np.asarray(lo) - c) / d_world
+            t1 = (np.asarray(hi) - c) / d_world
+        t_in = np.nanmax(np.minimum(t0, t1), axis=-1)
+        t_out = np.nanmin(np.maximum(t0, t1), axis=-1)
+        hit = (t_in <= t_out) & (t_in > 1e-9)
+        t_exit = np.minimum(t_exit, np.where(hit, t_in, np.inf))
     return t_exit  # z-depth == ray parameter because the ray's z is 1
 
 
@@ -166,7 +192,8 @@ def _color_frame(pose_cw, cfg: SyntheticSceneConfig) -> np.ndarray:
     w, h = cfg.color_width, cfg.color_height
     fx, fy, cx, cy = intrinsics_from_cfg(cfg, w, h)
     cx_flipped = w - cx
-    z = render_box_depth(pose_cw, fx, fy, cx_flipped, cy, w, h, cfg.box_min, cfg.box_max)
+    z = render_box_depth(pose_cw, fx, fy, cx_flipped, cy, w, h, cfg.box_min, cfg.box_max,
+                         cfg.clutter)
     pts = pose_cw[:3, 3] + z[..., None] * (_camera_rays(fx, fy, cx_flipped, cy, w, h)
                                            @ pose_cw[:3, :3].T)
     extent = cfg.box_max - cfg.box_min
@@ -193,7 +220,7 @@ def write_synthetic_project(project_dir: Path, cfg: SyntheticSceneConfig | None 
     ndc_frames = [
         encode_ndc(render_box_depth(poses_cw[i], dfx, dfy, cfg.depth_width - dcx, dcy,
                                     cfg.depth_width, cfg.depth_height,
-                                    cfg.box_min, cfg.box_max), cfg.near, cfg.far)
+                                    cfg.box_min, cfg.box_max, cfg.clutter), cfg.near, cfg.far)
         for i in range(cfg.n_frames)
     ]
     header = ["timestamp_ms", "width", "height", "near_z", "far_z",

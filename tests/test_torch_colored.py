@@ -2,7 +2,8 @@
 against the JAX package's pipeline, on the CPU.
 
 One tiny synthetic capture goes through each package with reconstruction
-steps 0 and 3-6 on (1-2 off) and small colour settings.  Tolerances:
+steps 0 and 3-6 on (1-2 off; tests/test_torch_pose_pipeline.py runs them)
+and small colour settings.  Tolerances:
 
 - colorless_mesh_raw/clean.ply and the colored mesh's vertices, triangles
   and normals: identical;
@@ -39,7 +40,9 @@ from mq3d_tpu_torch.dataio.data_io import DataIO
 from mq3d_tpu_torch.dataio.ply import read_ply
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.pipeline.processor import run_full_pipeline
-from mq3d_tpu_torch.recon.reconstruct import check_supported
+from mq3d_tpu_torch.recon import reconstruct
+from mq3d_tpu_torch.testing.synthetic import SyntheticSceneConfig as PortSceneConfig
+from mq3d_tpu_torch.testing.synthetic import write_synthetic_project as write_port_project
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -149,18 +152,30 @@ def test_each_package_reads_the_others_artifacts(runs):
     assert JaxDataIO(t).color.load_optimized_color_dataset(JaxSide.RIGHT) is not None
 
 
-@pytest.mark.parametrize("flag", ["estimate_depth_confidences", "optimize_depth_pose"])
-def test_steps_1_2_still_raise(tmp_path, flag):
+@pytest.mark.parametrize("flag,entry", [
+    ("estimate_depth_confidences", "estimate_depth_confidences"),
+    ("optimize_depth_pose", "DepthPoseOptimizer")])
+def test_steps_1_2_still_raise(tmp_path, monkeypatch, flag, entry):
+    """Switched on in the colored recipe, each of steps 1 and 2 is run by
+    reconstruct_scene (it raised NotImplementedError before they were
+    ported): its entry is reached, here replaced by one that raises."""
+    class Reached(Exception):
+        pass
+
+    def reached(*args, **kwargs):
+        raise Reached(entry)
+
+    monkeypatch.setattr(reconstruct, entry, reached)
+    write_port_project(tmp_path, PortSceneConfig(n_frames=4))
     cfg = colored_recipe()
     setattr(cfg.reconstruction, flag, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(Reached, match=entry):
         run_full_pipeline(tmp_path, cfg, device="cpu")
 
 
 def test_colored_recipe():
     cfg = colored_recipe(color_optimization={"interval": 10}, voxel_size=0.02)
     rc = cfg.reconstruction
-    check_supported(rc)  # steps 0 and 3-6 are all ported
     assert rc.optimize_color_pose and rc.render_color_aligned_depth
     assert rc.sample_point_cloud_from_colored_mesh
     assert not rc.estimate_depth_confidences and not rc.optimize_depth_pose

@@ -60,6 +60,18 @@ def test_slice3_modules_import_under_the_guard(module):
     assert proc.stdout.strip().splitlines()[-1] == "1"
 
 
+@pytest.mark.parametrize("module", [
+    "mq3d_tpu_torch.recon.confidence", "mq3d_tpu_torch.recon.graph_utils",
+    "mq3d_tpu_torch.ops.posegraph", "mq3d_tpu_torch.ops.odometry",
+    "mq3d_tpu_torch.recon.fragments", "mq3d_tpu_torch.ops.icp",
+    "mq3d_tpu_torch.recon.refine", "mq3d_tpu_torch.recon.depth_pose_optimizer",
+    "mq3d_tpu_torch.recon.reconstruct"])
+def test_slice4_modules_import_under_the_guard(module):
+    """The modules of reconstruction steps 1-2, each alone in a fresh
+    interpreter under the guard."""
+    test_slice3_modules_import_under_the_guard(module)
+
+
 def test_guard_refuses_a_forbidden_import():
     """The guard itself works: a module importing yaml fails under it."""
     script = _SCRIPT.replace('names = ["chip_smoke"]', 'names = ["yaml"]')
