@@ -8,8 +8,11 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      one link, with ptxas's registers, shared memory and spills
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (and at shapes that take the kernels'
-     scalar paths), with times and byte bounds; bgr_to_gray on the card
-     against the CPU over all 2^24 BGR triples; the gather probe
+     scalar paths), with times and byte bounds; K3 in both out-of-range
+     modes at every table size of the gather probe and at 0.125 MB, on
+     in-range and out-of-range indices; the timer's floor (an empty
+     launch); bgr_to_gray on the card against the CPU over all 2^24 BGR
+     triples; the gather probe's seven calls
      (mq3d_tpu_torch.tools.probe_gather, K3's own path, counts reset just
      before and read just after)
   3. the main path: a synthetic capture at Quest scale through
@@ -83,6 +86,7 @@ from mq3d_tpu_torch.models.transforms import CoordinateSystem
 from mq3d_tpu_torch.ops import icp, odometry, posegraph, raycast
 from mq3d_tpu_torch.ops import tsdf as tsdf_ops
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
+from mq3d_tpu_torch.ops.gather import MODES as gather_modes
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.yuv import bgr_to_gray, yuv420_to_8uc3, yuv420_to_bgr
@@ -100,7 +104,7 @@ from mq3d_tpu_torch.testing.synthetic import (
 )
 from mq3d_tpu_torch.tools import probe_gather
 from mq3d_tpu_torch.utils.devtime import bound_ms as bound
-from mq3d_tpu_torch.utils.devtime import time_ms
+from mq3d_tpu_torch.utils.devtime import floor_ms, time_ms
 
 SEED = 0
 
@@ -226,35 +230,63 @@ def check_k2(rng) -> dict:
             "library_ms": None}
 
 
+def _with_edges(idx: torch.Tensor, n: int):
+    """idx with every 997th index replaced by the edges of a table of n:
+    -1, -n, -n-1, n-1, n, n+7, INT32 min and max in turn."""
+    out = idx.clone()
+    k = out[::997].numel()
+    edges = torch.tensor([-1, -n, -n - 1, n - 1, n, n + 7, -2 ** 31, 2 ** 31 - 1],
+                         dtype=torch.int32, device=idx.device)
+    out[::997] = edges.repeat(k // 8 + 1)[:k]
+    return out, k
+
+
 def check_k3() -> dict:
-    """K3 against torch.take at the gather probe's 16 MB and 128 MB tables
-    with 2^19 indices; the 128 MB table (HBM) is the kernel's row."""
-    rows = {}
-    for mb in (16, 128):
-        table, idx = probe_gather.make_inputs(mb * 2 ** 20 // 4, device="cuda")
-        got = gather(table, idx)
-        ref = gather_plain(table, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K3 gather differs from torch.take at {mb} MB")
-        idx64 = idx.long()
-        ms = time_ms(lambda: gather(table, idx))
-        plain_ms = time_ms(lambda: gather_plain(table, idx))
-        library_ms = time_ms(lambda: torch.take(table, idx64))
-        distinct = int(torch.unique(idx).numel())
-        nbytes = idx.numel() * 4 * 2 + distinct * 4
-        b_ms, b_by = bound(nbytes, idx.numel())  # one range check per index
-        log(f"[phase 2] K3 gather {mb} MB table, {idx.numel()} indices "
-            f"({distinct} distinct): equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.take {library_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
-        rows[mb] = {"name": "gather", "route": "cuda",
+    """K3 against its plain version bit for bit, in both modes, at the
+    gather probe's five tables (2^19 indices) and at its CPU test's 0.125
+    MB table (the shared-memory size), on uniform in-range indices and on
+    the same indices with out-of-range ones mixed in.  The 128 MB table
+    (HBM) is timed and is the kernel's row; torch.take is its library
+    call."""
+    err, row = 0.0, None
+    for mb in (0.125,) + probe_gather.TABLE_MB:
+        table, idx = probe_gather.make_inputs(int(mb * 2 ** 20) // 4, device="cuda")
+        edges, n_edges = _with_edges(idx, table.numel())
+        for mode in gather_modes:
+            for ix in (idx, edges):
+                got = gather(table, ix, mode)
+                ref = gather_plain(table, ix, mode)
+                torch.cuda.synchronize()
+                if not probe_gather.equal_bits(got, ref):
+                    raise AssertionError(
+                        f"K3 gather ({mode}) differs from its plain version at {mb} MB")
+                ok = ~torch.isnan(ref)
+                err = max(err, float((got[ok] - ref[ok]).abs().max()))
+        log(f"[phase 2] K3 gather {mb:g} MB table, {idx.numel()} indices: fill and "
+            f"clip equal to the plain version bit for bit, in range and with "
+            f"{n_edges} edge indices")
+        if mb == 128:
+            idx64 = idx.long()
+            ms = time_ms(lambda: gather(table, idx))
+            plain_ms = time_ms(lambda: gather_plain(table, idx))
+            library_ms = time_ms(lambda: torch.take(table, idx64))
+            t = probe_gather.traffic(table, idx)
+            b_ms, b_by = bound(t["bytes"], idx.numel())  # one resolve per index
+            s_ms, _ = bound(t["sector_bytes"], idx.numel())
+            log(f"[phase 2] K3 gather {mb} MB table, {idx.numel()} indices "
+                f"({t['distinct']} distinct): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.take {library_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}, {t['bytes'] / 1e6:.2f} MB), sector bound "
+                f"{s_ms:.4f} ms ({t['sector_bytes'] / 1e6:.2f} MB)")
+            row = {"name": "gather", "route": "cuda",
                     "source": "mq3d_tpu_torch/csrc/gather.cu",
                     "replaces": "tools/probe_pallas_gather.py:49",
-                    "max_abs_err": float((got - ref).abs().max()),
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": library_ms}
-    return rows[128]
+    row["max_abs_err"] = err
+    log(f"[phase 2] timer floor: an empty launch under time_ms takes "
+        f"{floor_ms():.4f} ms")
+    return row
 
 
 def time_fma(rng) -> None:
@@ -273,15 +305,15 @@ def time_fma(rng) -> None:
 
 
 def probe_path() -> int:
-    """K3's own path: the gather probe as its users run it, with the launch
-    counts reset just before and read just after."""
+    """K3's own path: the gather probe's seven calls as its users run them,
+    with the launch counts reset just before and read just after."""
     _build.reset_launch_counts()
-    rows = probe_gather.run(probe_gather.TABLE_MB, "cuda")
+    rows = probe_gather.run(probe_gather.CALLS, "cuda")
     launches = _build.launch_counts()["gather"]
     if not all(r["equal"] for r in rows) or launches == 0:
         raise AssertionError(f"gather probe failed: {rows}, {launches} launches")
-    log(f"[phase 2] gather probe over {probe_gather.TABLE_MB} MB tables: all "
-        f"equal to torch.take; {launches} K3 launches")
+    log(f"[phase 2] gather probe, the TPU probe's {len(rows)} calls: all equal to "
+        f"the plain version; {launches} K3 launches")
     return launches
 
 

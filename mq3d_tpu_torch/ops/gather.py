@@ -5,11 +5,16 @@ Counterpart of the three Pallas kernels of tools/probe_pallas_gather.py
 compiler can gather from a table held in VMEM.  On the card the three
 table layouts are one function, run by `mq3d_tpu_torch.tools.probe_gather`.
 
+Indices outside [0, n) follow the TPU kernels, index by index:
+  * "fill" (`gather_take_kernel`, `gather_grid_kernel`: jnp.take): an index
+    in [-n, 0) reads table[n + i]; every other out-of-range index reads
+    NaN.
+  * "clip" (`gather2d_kernel`: x.reshape(-1)[i]): an index in [-n, 0)
+    wraps the same way; the rest clamp to [0, n-1].
+
 `gather` launches the hand-written CUDA kernel (csrc/gather.cu) for
-tensors on the card and runs `gather_plain` (torch.take) for tensors on
-the CPU; anything else raises.  Indices must lie in [0, table.numel()):
-torch.take rejects others, and the kernel reads NaN for them, as
-jnp.take's default fill mode does.
+tensors on the card and runs `gather_plain` for tensors on the CPU;
+anything else raises.
 """
 
 from __future__ import annotations
@@ -18,13 +23,30 @@ import torch
 
 from mq3d_tpu_torch.kernels import _build
 
-
-def gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: (n,) f32 table, (m,) i32 indices -> (m,) f32."""
-    return torch.take(table, idx.long())
+MODES = {"fill": 0, "clip": 1}
 
 
-def _check(table, idx):
+def resolve(idx: torch.Tensor, n: int, mode: str = "fill"):
+    """(position in the table as int64, whether the index reads the table):
+    the wrap of [-n, 0), then `mode`'s rule for the rest."""
+    i = idx.long()
+    i = torch.where(i < 0, i + n, i)
+    if mode == "clip":
+        i = i.clamp(0, n - 1)
+    return i, (i >= 0) & (i < n)
+
+
+def gather_plain(table: torch.Tensor, idx: torch.Tensor, mode: str = "fill") -> torch.Tensor:
+    """Plain PyTorch version: (n,) f32 table, (m,) i32 indices -> (m,) f32.
+    Never raises on an out-of-range index."""
+    i, ok = resolve(idx, table.numel(), mode)
+    nan = torch.full(idx.shape, float("nan"), dtype=table.dtype, device=table.device)
+    if table.numel() == 0:
+        return nan
+    return torch.where(ok, table[torch.where(ok, i, 0)], nan)
+
+
+def _check(table, idx, mode):
     if table.dtype != torch.float32 or idx.dtype != torch.int32:
         raise TypeError(
             f"gather takes a float32 table and int32 indices, got {table.dtype}, "
@@ -35,15 +57,22 @@ def _check(table, idx):
             f"{tuple(table.shape)} and {tuple(idx.shape)}")
     if table.device != idx.device:
         raise ValueError("table and indices must lie on one device")
+    if mode not in MODES:
+        raise ValueError(f"gather: mode must be one of {sorted(MODES)}, got {mode!r}")
+    if mode == "clip" and table.numel() == 0 and idx.numel() > 0:
+        raise ValueError("gather: clip mode needs a table with an element")
 
 
-def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = table[idx[i]]: (n,) f32, (m,) i32 -> (m,) f32.
+def gather(table: torch.Tensor, idx: torch.Tensor, mode: str = "fill",
+           route: int = 0, per_thread: int = 0) -> torch.Tensor:
+    """out[i] = table[idx[i]]: (n,) f32, (m,) i32 -> (m,) f32, with `mode`'s
+    rule for out-of-range indices.
 
-    CUDA tensors launch K3; CPU tensors take the plain version."""
-    _check(table, idx)
+    CUDA tensors launch K3 (`route` 0 and `per_thread` 0: chosen by the
+    kernel from the table's size); CPU tensors take the plain version."""
+    _check(table, idx, mode)
     if table.device.type == "cpu":
-        return gather_plain(table, idx)
+        return gather_plain(table, idx, mode)
     if table.device.type != "cuda":
         raise ValueError(f"gather: unsupported device {table.device}")
     if table.numel() >= 2 ** 31:
@@ -56,7 +85,8 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.mq3d_gather(table.data_ptr(), table.numel(), idx.data_ptr(),
-                          out.data_ptr(), idx.numel(), stream)
+                          out.data_ptr(), idx.numel(), MODES[mode], route,
+                          per_thread, stream)
     _build.check(err, "gather")
     _build.count_launch("gather")
     return out

@@ -11,6 +11,9 @@ The flush reads a 256 MB buffer, which leaves the L2 full of clean lines.
 Zeroing the buffer instead would leave up to 50 MB of dirty lines, whose
 write-back to HBM would then be charged to the timed call.
 
+`floor_ms` is `time_ms` of an empty launch: what the timer reads for a
+kernel that does nothing.
+
 `bound_ms` is the larger of bytes over the HBM rate and operations over
 the ALU rate (NVIDIA H100 SXM data sheet, at its 700 W limit).
 """
@@ -47,6 +50,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     del buf
     return float(np.median(times))
+
+
+def floor_ms() -> float:
+    """The timer's floor: `time_ms` of an empty launch (a device spin of 0
+    cycles, one thread)."""
+    return time_ms(lambda: torch.cuda._sleep(0))
 
 
 def bound_ms(bytes_moved: float, ops: float):

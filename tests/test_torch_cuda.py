@@ -10,7 +10,8 @@ copy and vector indices, its scalar staging (odd PS or an unaligned patch),
 its scalar indices (V % 4 != 0 or unaligned rows) and its one-buffer ring
 (PS > 170); K2's 16-pixel vector strips staged in shared memory (past
 48 KB of it at W=8208) and its scalar strips (W % 16 != 0, rows too wide
-to stage at W=38752, or unaligned planes); K3's vector and scalar paths.
+to stage at W=38752, or unaligned planes); K3's routes (shared memory, L2,
+HBM) in both out-of-range modes, with vector and scalar indices.
 
 Tolerance: exact (K1 and K3 are gathers, K2 integer arithmetic).
 """
@@ -114,11 +115,46 @@ def test_k3_kernel_matches_torch_take(cuda_device, table_mb, m, offset):
 
 
 @pytest.mark.cuda
-def test_k3_out_of_range_reads_nan(cuda_device):
+@pytest.mark.parametrize("mode,want", [
+    ("fill", [0, 7, float("nan"), 7, 0, float("nan"), float("nan"), float("nan")]),
+    ("clip", [0, 7, 7, 7, 0, 0, 0, 7])])
+def test_k3_out_of_range_reads_nan(cuda_device, mode, want):
+    """The TPU kernels' values (tools/probe_pallas_gather.py): -1 wraps to
+    table[n-1] in both modes; past [-n, n) fill mode reads NaN (jnp.take)
+    and clip mode clamps (x.reshape(-1)[i])."""
     table = torch.arange(8, dtype=torch.float32, device=cuda_device)
-    idx = torch.tensor([0, -1, 8, 7], dtype=torch.int32, device=cuda_device)
-    got = gather(table, idx).cpu()
-    assert got[0] == 0 and got[3] == 7 and torch.isnan(got[1:3]).all()
+    idx = torch.tensor([0, -1, 8, 7, -8, -9, -2 ** 31, 2 ** 31 - 1], dtype=torch.int32,
+                       device=cuda_device)
+    got = gather(table, idx, mode).cpu()
+    np.testing.assert_array_equal(got.numpy(), np.array(want, dtype=np.float32))
+    assert torch.equal(got.view(torch.int32), gather_plain(table.cpu(), idx.cpu(), mode)
+                       .view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_mb", [0.125, 16, 128])  # shared, L2, HBM routes
+@pytest.mark.parametrize("mode", ["fill", "clip"])
+@pytest.mark.parametrize("m,idx_offset,table_offset", [
+    (1 << 19, 0, 0), (4099, 1, 0), (4097, 0, 3), (3, 2, 1), (1 << 19, 4, 4)])
+def test_k3_routes_match_plain(cuda_device, table_mb, mode, m, idx_offset, table_offset):
+    """Every route of K3 (chosen by the table's size) against the plain
+    version bit for bit, in both modes, on in-range and edge indices, at
+    aligned and offset pointers and at m not a multiple of 4."""
+    from mq3d_tpu_torch.tools.probe_gather import make_inputs
+
+    table, idx = make_inputs(int(table_mb * 2 ** 20) // 4, m, seed=7, device=cuda_device)
+    n = table.numel()
+    edges = torch.tensor([-1, -n, -n - 1, n - 1, n, n + 7, -2 ** 31, 2 ** 31 - 1],
+                         dtype=torch.int32, device=cuda_device)
+    pos = torch.arange(0, m, max(1, m // 64), device=cuda_device)
+    idx[pos] = edges.repeat(len(pos) // 8 + 1)[:len(pos)]
+    if table_offset:
+        table = _offset_view(table, table_offset)
+    if idx_offset:
+        idx = _offset_view(idx, idx_offset)
+    got = gather(table, idx, mode)
+    want = gather_plain(table, idx, mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
