@@ -342,8 +342,7 @@ extern "C" int mq3d_gather(const void* table, int n, const void* idx, void* out,
   if (n < 0 || (mode != 0 && mode != 1) || (mode == 1 && n == 0) || route < 0 ||
       route > kLdgL2 || (route == kShared && kBarBytes + bytes > kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kAuto)
-    route = kBarBytes + bytes <= kMaxSmem ? kShared : bytes < kL2Bytes ? kL2 : kGlobal;
+  if (route == kAuto) route = kLdg;
   const bool vec = aligned16(idx) && aligned16(out);
   const bool clip = mode == 1;
   auto t = static_cast<const float*>(table);

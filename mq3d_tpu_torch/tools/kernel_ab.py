@@ -17,9 +17,11 @@ the same thing) beside torch.take, the byte bound and the sector-counted
 bound (tools/probe_gather.py `traffic`).  The old K1/K2 entry points take
 the current arguments; the old gather takes PR 7's (table, n, idx, out, m,
 stream) with --old-gather-abi pr7 (the default), or the current ones.
-With --k3-variants it also times each of K3's routes ("global", "l2",
-"shared", "ldg", "ldg_l2") at 4, 8 and 16 elements a thread, forward then
-backward, and the cost of a random draw in HBM (`k3_granularity`).  It
+With --k3-variants it also times K3's table loads that bypass L1
+("global") and that allocate in it ("ldg", the default) at 4 and 8
+elements a thread, forward then backward, the old and new kernels in turns
+once more after them, and the cost of a random draw in HBM
+(`k3_granularity`).  It
 prints the timer's floor (an empty launch under the same timer).  Needs the
 card.
 """
@@ -47,8 +49,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GATHER_ABIS = {"pr7": (_P, _I, _P, _P, _LL, _P),
                 "current": _build._SIGNATURES["mq3d_gather"]}
 K3_TABLE_MB = (0.125,) + probe_gather.TABLE_MB
-K3_ROUTES = {"global": 1, "l2": 2, "shared": 3, "ldg": 4, "ldg_l2": 5}
-K3_PER_THREAD = (4, 8, 16)
+K3_ROUTES = {"global": 1, "ldg": 4}
+K3_PER_THREAD = (4, 8)
 
 
 def load_old(csrc: Path, gather_abi: str):
@@ -136,6 +138,8 @@ def k3(old_lib, new_lib, gather_abi, variants) -> list:
         res["sector_bytes"] = t["sector_bytes"]
         if variants:
             res["variants"] = k3_variants(new_lib, ptrs, out, ref)
+            res["again"] = in_turns(*_calls("mq3d_gather", old_lib, new_lib, new_args,
+                                            old_args).values())
         rows.append({"table_mb": mb, "indices": m, "fits_in": probe_gather.fits_in(n * 4),
                      **res})
     return rows
@@ -168,23 +172,29 @@ def k3_granularity(lib, rng) -> dict:
     """What a random draw costs in HBM.  At a 128 MB table, 2^19 draws, each
     in its own 32-byte sector, the sectors chosen as one per 64-byte
     segment, both sectors of 2^18 segments, or all four sectors of 2^17
-    128-byte lines, in shuffled order; timed with the HBM route (global, 4
-    a thread) in turns.  If HBM served 32-byte sectors, the three would take
-    the same time; a gap shows the bytes it moves for one draw."""
+    128-byte lines, in shuffled order, then the probe's uniform draws as
+    they come and sorted; timed with the default route, forward and
+    backward.  If HBM served 32-byte sectors at its byte rate, the first
+    three would take the same time and sorting would change nothing."""
     n, m = 128 * 2 ** 20 // 4, 1 << 19
-    tab, _ = probe_gather.make_inputs(n, 1, device="cuda")
+    tab, uniform = probe_gather.make_inputs(n, m, device="cuda")
+    uniform = uniform.cpu().numpy()
     out = torch.empty(m, dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     calls, res = {}, {}
     for name, per, span in (("1 per 64 B", 1, 16), ("2 per 64 B", 2, 16),
-                            ("4 per 128 B", 4, 32)):
-        groups = rng.permutation(n // span)[:m // per]
-        ix = (groups[:, None] * span + np.arange(per)[None, :] * 8
-              + rng.integers(0, 8, (m // per, per))).reshape(-1)
-        rng.shuffle(ix)
+                            ("4 per 128 B", 4, 32), ("uniform", 0, 0),
+                            ("uniform, sorted", 0, 0)):
+        if per:
+            groups = rng.permutation(n // span)[:m // per]
+            ix = (groups[:, None] * span + np.arange(per)[None, :] * 8
+                  + rng.integers(0, 8, (m // per, per))).reshape(-1)
+            rng.shuffle(ix)
+        else:
+            ix = np.sort(uniform) if "sorted" in name else uniform
         idx = torch.from_numpy(ix.astype(np.int32)).cuda()
         calls[name] = (lambda idx=idx: _build.check(lib.mq3d_gather(
-            tab.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m, 0, 1, 4, stream),
+            tab.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m, 0, 0, 0, stream),
             "gather granularity"))
         calls[name]()
         torch.cuda.synchronize()
@@ -236,6 +246,9 @@ def main(argv=None) -> int:
               f"({r['bound_ms'] / r['new_mean_ms']:.0%} of new), sector bound "
               f"{r['sector_bound_ms']:.4f} ms ({r['sector_bound_ms'] / r['new_mean_ms']:.0%}); "
               f"equal old {r['old_equal']} new {r['new_equal']}", flush=True)
+        if "again" in r:
+            print(f"[k3]   again after the variants: old {r['again']['old_ms']} ms, new "
+                  f"{r['again']['new_ms']} ms", flush=True)
         for name, v in r.get("variants", {}).items():
             print(f"[k3]   {name}: {v['ms']} ms, equal {v['equal']}", flush=True)
     for name, v in result.get("k3_granularity", {}).items():
