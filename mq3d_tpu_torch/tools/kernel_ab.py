@@ -18,10 +18,12 @@ bound (tools/probe_gather.py `traffic`).  The old K1/K2 entry points take
 the current arguments; the old gather takes PR 7's (table, n, idx, out, m,
 stream) with --old-gather-abi pr7 (the default), or the current ones.
 With --k3-variants it also times K3's table loads that bypass L1
-("global") and that allocate in it ("ldg", the default) at 4 and 8
-elements a thread, forward then backward, the old and new kernels in turns
-once more after them, and the cost of a random draw in HBM
-(`k3_granularity`).  It
+("global"), that allocate in it ("ldg", the default) and that go through
+a table staged in shared memory ("shared", tables up to 227 KB) at 4, 8
+and 16 elements a thread, forward then backward, the old and new kernels
+in turns once more after them, the cost of a random draw in HBM
+(`k3_granularity`) and, last, whether lines loaded under an L2 evict_last
+policy survive the timer's flush (`k3_persistence`).  It
 prints the timer's floor (an empty launch under the same timer).  Needs the
 card.
 """
@@ -49,8 +51,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GATHER_ABIS = {"pr7": (_P, _I, _P, _P, _LL, _P),
                 "current": _build._SIGNATURES["mq3d_gather"]}
 K3_TABLE_MB = (0.125,) + probe_gather.TABLE_MB
-K3_ROUTES = {"global": 1, "ldg": 4}
-K3_PER_THREAD = (4, 8)
+K3_ROUTES = {"global": 1, "shared": 3, "ldg": 4}
+K3_PER_THREAD = (4, 8, 16)
 
 
 def load_old(csrc: Path, gather_abi: str):
@@ -206,6 +208,23 @@ def k3_granularity(lib, rng) -> dict:
     return res
 
 
+def k3_persistence(lib) -> dict:
+    """Do table lines loaded under an L2 evict_last policy survive the
+    timer's flush?  At a 32 MB table: the default route timed, then the
+    evict_last route ("ldg_l2") launched 20 times, then the default route
+    timed again.  A faster second time means they do, and every cold-L2
+    time taken after them finds part of the table in L2."""
+    tab, idx = probe_gather.make_inputs(32 * 2 ** 20 // 4, device="cuda")
+    out = torch.empty(idx.numel(), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (tab.data_ptr(), tab.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(), 0)
+    default = lambda: _build.check(lib.mq3d_gather(*args, 0, 0, stream), "gather")
+    before = [time_ms(default), time_ms(default)]
+    for _ in range(20):
+        _build.check(lib.mq3d_gather(*args, 5, 8, stream), "gather ldg_l2")
+    return {"before_ms": before, "after_ms": [time_ms(default), time_ms(default)]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", type=Path, required=True)
@@ -231,6 +250,7 @@ def main(argv=None) -> int:
               "k3": k3(old_lib, new_lib, args.old_gather_abi, args.k3_variants)}
     if args.k3_variants:
         result["k3_granularity"] = k3_granularity(new_lib, rng)
+        result["k3_persistence"] = k3_persistence(new_lib)
     for name in ("k1", "k2"):
         r = result[name]
         print(f"[{name}] {r['shape']}: old {r['old_ms']} ms, new {r['new_ms']} ms "
@@ -254,6 +274,10 @@ def main(argv=None) -> int:
     for name, v in result.get("k3_granularity", {}).items():
         print(f"[k3 granularity] 128 MB, {v['sectors']} sectors, {name}: {v['ms']} ms, "
               f"equal {v['equal']}", flush=True)
+    if "k3_persistence" in result:
+        p = result["k3_persistence"]
+        print(f"[k3 persistence] 32 MB, default route: {p['before_ms']} ms, after 20 "
+              f"evict_last launches {p['after_ms']} ms", flush=True)
     line = json.dumps(result)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
