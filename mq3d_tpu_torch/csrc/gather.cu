@@ -11,38 +11,30 @@
 // and an out-of-range draw in fill mode issues no load, so neither costs
 // time.
 //
-// Bound on the H100: memory, reached only through enough loads in flight.
-// Each index and output moves once (8 bytes an element) and a random draw
-// fetches a whole 32-byte sector of the table.  The probe's 2^19 draws move
-// 4 MB of indices and outputs, and 4 to 17 MB of table sectors as the table
-// grows from 4 to 128 MB, so a call is worth a few microseconds of HBM
-// time, about as long as two dependent trips to HBM (index, then table).
-// What decides its time is how many independent loads each SM keeps in
-// flight and how soon the table loads start.
+// Bound on the H100: memory, but not its byte rate.  The probe's 2^19
+// uniform draws move 4 MB of indices and outputs and touch 4 to 16 MB of
+// 32-byte table sectors, a few microseconds at 3.35 TB/s.  Timed from a
+// cold L2 (mq3d_tpu_torch/tools/kernel_ab.py), a launch costs ~5 us before
+// it does anything; tables that fit the L2 then pay two dependent trips to
+// HBM (the index, then the table); and beyond the L2 a random draw costs
+// HBM a 64-byte access, at about two thirds of its byte rate: draws that
+// share 64-byte segments run faster at the same count of 32-byte sectors.
 //
-// Design (the routes are timed against each other by
-// mq3d_tpu_torch/tools/kernel_ab.py):
-//  * Each thread owns kPer elements of a block's chunk: it issues all of
-//    its index loads (16-byte vectors where the index and output pointers
-//    are 16-byte aligned), then all kPer table loads, and only then
-//    stores.  The grid holds as many blocks as fit on the card at once
-//    (SM count x occupancy), or fewer when the indices need fewer chunks,
-//    and walks the chunks grid-stride.
-//  * Table loads bypass L1 (ld.global.nc.L1::no_allocate): a uniform draw
-//    almost never hits a line that the same SM fetched before.
-//  * Route "l2" (tables smaller than the 50 MB L2): table loads carry an
-//    L2 evict_last policy, index and output streams evict_first, so the
-//    draws that repeat a sector find it in L2.  Route "global" carries no
-//    hints.  Route "shared" (tables up to 227 KB): each block copies the
-//    table into shared memory with one cp.async.bulk behind an mbarrier,
-//    loads its first chunk's indices while the copy runs, and gathers from
-//    shared memory.
-//  * Any m and any alignment: unaligned index or output pointers take
-//    scalar index loads; with aligned ones the last m % 4 elements are
-//    gathered one by one.  An unaligned table is staged into shared memory
-//    with plain loads.
-// It is a pure gather, so every route is bit-identical to the plain
-// PyTorch version (mq3d_tpu_torch/ops/gather.py gather_plain).
+// Design: each thread owns kPer elements of a block's chunk.  It issues all
+// of its index loads (16-byte vectors, streaming past L1, where the index
+// and output pointers are 16-byte aligned), then all kPer table loads, and
+// only then stores.  The grid holds as many blocks as fit on the card at
+// once (SM count x occupancy), or fewer when the indices need fewer chunks,
+// and walks the chunks grid-stride.  Table loads take the read-only path
+// and allocate in L1 (ld.global.nc).  The alternatives were timed against
+// this one in turns and lost at the probe's sizes: loads that bypass L1,
+// an L2 evict_last policy on the table (its lines also outlive the
+// launch and the timer's flush), a table staged in shared memory by
+// cp.async.bulk (0.125 MB), and 4 or 16 elements a thread (no change).
+// Unaligned index or output pointers take scalar index loads; with aligned
+// ones the last m % 4 elements are gathered one by one.  It is a pure
+// gather, so the result is bit-identical to the plain PyTorch version
+// (mq3d_tpu_torch/ops/gather.py gather_plain).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,16 +42,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBarBytes = 16;            // mbarrier ahead of the shared table
-constexpr long long kMaxSmem = 232448;   // 227 KB a block can use
-constexpr long long kL2Bytes = 50LL << 20;
+constexpr int kPer = 8;  // elements a thread owns in a chunk
+constexpr long long kChunk = static_cast<long long>(kThreads) * kPer;
 constexpr unsigned kNaN = 0x7fc00000u;
-
-enum Route { kAuto = 0, kGlobal = 1, kL2 = 2, kShared = 3, kLdg = 4, kLdgL2 = 5 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Position of index i in the table, and whether it reads the table (false:
 // fill mode's NaN).  In clip mode every index reads (n >= 1).
@@ -70,205 +55,66 @@ __device__ __forceinline__ int resolve(int i, int n, bool clip, bool* ok) {
   return j;
 }
 
-template <bool kHint>
-__device__ __forceinline__ void load_idx4(const int* p, int* v, uint64_t pol) {
-  if (kHint) {
-    asm volatile(
-        "ld.global.nc.L1::no_allocate.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;\n"
-        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "l"(p), "l"(pol));
-  } else {
-    const int4 t = __ldcs(reinterpret_cast<const int4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  }
-}
-
-template <bool kHint>
-__device__ __forceinline__ int load_idx1(const int* p, uint64_t pol) {
-  int v;
-  if (kHint) {
-    asm volatile("ld.global.nc.L1::no_allocate.L2::cache_hint.s32 %0, [%1], %2;\n"
-                 : "=r"(v) : "l"(p), "l"(pol));
-  } else {
-    v = __ldcs(p);
-  }
-  return v;
-}
-
-// table[j] if ok, else NaN; no load is issued when !ok.  kL1: allocate
-// in L1 (ld.global.nc), else bypass it (L1::no_allocate).
-template <bool kHint, bool kL1 = false>
-__device__ __forceinline__ float load_table(const float* table, int j, bool ok,
-                                            uint64_t pol) {
+// table[j] if ok, else NaN; no load is issued when !ok.
+__device__ __forceinline__ float load_table(const float* table, int j, bool ok) {
   float v = __uint_as_float(kNaN);
-  const float* p = table + j;
-  if (kL1 && kHint) {
-    asm volatile(
-        "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
-        "@q ld.global.nc.L2::cache_hint.f32 %0, [%1], %3;\n}\n"
-        : "+f"(v) : "l"(p), "r"(static_cast<unsigned>(ok)), "l"(pol));
-  } else if (kL1) {
-    asm volatile(
-        "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
-        "@q ld.global.nc.f32 %0, [%1];\n}\n"
-        : "+f"(v) : "l"(p), "r"(static_cast<unsigned>(ok)));
-  } else if (kHint) {
-    asm volatile(
-        "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
-        "@q ld.global.nc.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %3;\n}\n"
-        : "+f"(v) : "l"(p), "r"(static_cast<unsigned>(ok)), "l"(pol));
-  } else {
-    asm volatile(
-        "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
-        "@q ld.global.nc.L1::no_allocate.f32 %0, [%1];\n}\n"
-        : "+f"(v) : "l"(p), "r"(static_cast<unsigned>(ok)));
-  }
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
+      "@q ld.global.nc.f32 %0, [%1];\n}\n"
+      : "+f"(v) : "l"(table + j), "r"(static_cast<unsigned>(ok)));
   return v;
 }
 
-template <bool kHint>
-__device__ __forceinline__ void store4(float* p, const float* v, uint64_t pol) {
-  if (kHint) {
-    asm volatile("st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n"
-                 :: "l"(p), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "l"(pol)
-                 : "memory");
-  } else {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  }
-}
-
-template <bool kHint>
-__device__ __forceinline__ void store1(float* p, float v, uint64_t pol) {
-  if (kHint) {
-    asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;\n"
-                 :: "l"(p), "f"(v), "l"(pol) : "memory");
-  } else {
-    __stcs(p, v);
-  }
-}
-
-// One chunk of kThreads * kPer elements starting at element `base`: every
-// index load, then every table (or shared) read, then every store.  kVec is
-// 4 (16-byte index and output vectors) or 1.  `limit` is the number of
-// elements the vector loop covers (m rounded down to kVec).
-template <int kPer, int kVec, bool kHint, bool kShared>
-__device__ __forceinline__ void load_chunk_idx(const int* __restrict__ idx,
-                                               long long base, long long limit,
-                                               int* iv, uint64_t stream) {
-#pragma unroll
-  for (int u = 0; u < kPer / kVec; ++u) {
-    const long long e = base + (static_cast<long long>(u) * kThreads + threadIdx.x) * kVec;
-    if (e < limit) {
-      if constexpr (kVec == 4) load_idx4<kHint>(idx + e, iv + 4 * u, stream);
-      else iv[u] = load_idx1<kHint>(idx + e, stream);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) iv[u * kVec + k] = 0;
-    }
-  }
-}
-
-template <int kPer, int kVec, bool kHint, bool kShared, bool kL1>
-__device__ __forceinline__ void gather_chunk(const float* __restrict__ table,
-                                             const float* tab_s, int n,
-                                             float* __restrict__ out,
-                                             long long base, long long limit,
-                                             bool clip, const int* iv,
-                                             uint64_t keep, uint64_t stream) {
-  float r[kPer];
-#pragma unroll
-  for (int u = 0; u < kPer / kVec; ++u) {
-    const long long e = base + (static_cast<long long>(u) * kThreads + threadIdx.x) * kVec;
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      bool ok;
-      const int j = resolve(iv[u * kVec + k], n, clip, &ok);
-      ok = ok && e < limit;
-      if (kShared) r[u * kVec + k] = ok ? tab_s[j] : __uint_as_float(kNaN);
-      else r[u * kVec + k] = load_table<kHint, kL1>(table, j, ok, keep);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kPer / kVec; ++u) {
-    const long long e = base + (static_cast<long long>(u) * kThreads + threadIdx.x) * kVec;
-    if (e < limit) {
-      if constexpr (kVec == 4) store4<kHint>(out + e, r + 4 * u, stream);
-      else store1<kHint>(out + e, r[u], stream);
-    }
-  }
-}
-
-// Waits until the block's staged table has landed: the bulk part (its
-// mbarrier) and the part copied with plain loads (__syncthreads).  A copy
-// that never lands (a fault) traps after ~2^30 polls instead of hanging.
-__device__ __forceinline__ void wait_table(uint64_t* bar, int n_bulk) {
-  if (n_bulk > 0) {
-    uint32_t done = 0, polls = 0;
-    do {
-      if (++polls == (1u << 30)) __trap();
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done) : "r"(smem_addr(bar)) : "memory");
-    } while (!done);
-  }
-  __syncthreads();
-}
-
-template <int kPer, int kVec, bool kHint, bool kShared, bool kL1>
+// kVec is 4 (16-byte index and output vectors) or 1.  The chunks cover the
+// first m rounded down to kVec elements; the last block gathers the rest.
+template <int kVec>
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const float* __restrict__ table, int n, const int* __restrict__ idx,
-              float* __restrict__ out, long long m, bool clip, bool bulk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* tab_s = reinterpret_cast<float*>(smem + kBarBytes);
-  uint64_t keep = 0, stream = 0;
-  if (kHint) {
-    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(keep));
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(stream));
-  }
-  constexpr long long kChunk = static_cast<long long>(kThreads) * kPer;
+              float* __restrict__ out, long long m, bool clip) {
   const long long limit = m / kVec * kVec;
-  const int n_bulk = bulk ? n / 4 * 4 : 0;  // elements the bulk copy moves
-
-  if (kShared) {
-    if (n_bulk > 0) {
-      if (threadIdx.x == 0) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar))
-                     : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        const uint32_t bytes = static_cast<uint32_t>(n_bulk) * 4u;
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                     :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1], %2, [%3];\n"
-            :: "r"(smem_addr(tab_s)), "l"(table), "r"(bytes), "r"(smem_addr(bar))
-            : "memory");
+  for (long long base = blockIdx.x * kChunk; base < limit;
+       base += static_cast<long long>(gridDim.x) * kChunk) {
+    int iv[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer / kVec; ++u) {
+      const long long e = base + (static_cast<long long>(u) * kThreads + threadIdx.x) * kVec;
+      if (e >= limit) {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) iv[u * kVec + k] = 0;
+      } else if constexpr (kVec == 4) {
+        const int4 t = __ldcs(reinterpret_cast<const int4*>(idx + e));
+        iv[4 * u] = t.x; iv[4 * u + 1] = t.y; iv[4 * u + 2] = t.z; iv[4 * u + 3] = t.w;
+      } else {
+        iv[u] = __ldcs(idx + e);
       }
     }
-    for (int i = n_bulk + threadIdx.x; i < n; i += kThreads) tab_s[i] = table[i];
+    float r[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer / kVec; ++u) {
+      const long long e = base + (static_cast<long long>(u) * kThreads + threadIdx.x) * kVec;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        bool ok;
+        const int j = resolve(iv[u * kVec + k], n, clip, &ok);
+        r[u * kVec + k] = load_table(table, j, ok && e < limit);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer / kVec; ++u) {
+      const long long e = base + (static_cast<long long>(u) * kThreads + threadIdx.x) * kVec;
+      if (e >= limit) continue;
+      if constexpr (kVec == 4)
+        __stcs(reinterpret_cast<float4*>(out + e),
+               make_float4(r[4 * u], r[4 * u + 1], r[4 * u + 2], r[4 * u + 3]));
+      else
+        __stcs(out + e, r[u]);
+    }
   }
-
-  bool first = true;
-  for (long long c = blockIdx.x; c * kChunk < limit; c += gridDim.x) {
-    int iv[kPer];
-    load_chunk_idx<kPer, kVec, kHint, kShared>(idx, c * kChunk, limit, iv, stream);
-    if (kShared && first) wait_table(bar, n_bulk);
-    first = false;
-    gather_chunk<kPer, kVec, kHint, kShared, kL1>(table, tab_s, n, out, c * kChunk, limit,
-                                             clip, iv, keep, stream);
-  }
-  if (kShared && first) wait_table(bar, n_bulk);  // no chunk: still await the copy
-  // The last m % kVec elements, one by one.
   if (kVec > 1 && blockIdx.x == gridDim.x - 1 && threadIdx.x < m - limit) {
     const long long e = limit + threadIdx.x;
     bool ok;
     const int j = resolve(__ldcs(idx + e), n, clip, &ok);
-    __stcs(out + e, load_table<false>(table, j, ok, 0));
+    __stcs(out + e, load_table(table, j, ok));
   }
 }
 
@@ -276,84 +122,39 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-template <int kPer, int kVec, bool kHint, bool kShared, bool kL1 = false>
+template <int kVec>
 cudaError_t launch(const float* table, int n, const int* idx, float* out, long long m,
                    bool clip, cudaStream_t stream) {
-  auto kernel = gather_kernel<kPer, kVec, kHint, kShared, kL1>;
-  const bool bulk = kShared && aligned16(table);
-  const size_t smem = kShared ? kBarBytes + (static_cast<size_t>(n) * 4 + 15) / 16 * 16 : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gather_kernel<kVec>, kThreads, 0);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  const long long chunk = static_cast<long long>(kThreads) * kPer;
-  const long long chunks = (m / kVec * kVec + chunk - 1) / chunk;
-  long long grid = static_cast<long long>(sm_count()) * (per_sm > 0 ? per_sm : 1);
+  const long long chunks = (m / kVec * kVec + kChunk - 1) / kChunk;
+  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (grid > chunks) grid = chunks;
-  if (grid < 1) grid = 1;  // m < kVec: the tail alone
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(table, n, idx, out, m,
-                                                                  clip, bulk);
+  if (grid < 1) grid = 1;  // m < kVec: the last elements alone
+  gather_kernel<kVec><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+      table, n, idx, out, m, clip);
   return cudaGetLastError();
-}
-
-template <int kPer>
-cudaError_t dispatch(int route, bool vec, const float* table, int n, const int* idx,
-                     float* out, long long m, bool clip, cudaStream_t s) {
-  switch (route) {
-    case kGlobal:
-      return vec ? launch<kPer, 4, false, false>(table, n, idx, out, m, clip, s)
-                 : launch<kPer, 1, false, false>(table, n, idx, out, m, clip, s);
-    case kL2:
-      return vec ? launch<kPer, 4, true, false>(table, n, idx, out, m, clip, s)
-                 : launch<kPer, 1, true, false>(table, n, idx, out, m, clip, s);
-    case kLdg:
-      return vec ? launch<kPer, 4, false, false, true>(table, n, idx, out, m, clip, s)
-                 : launch<kPer, 1, false, false, true>(table, n, idx, out, m, clip, s);
-    case kLdgL2:
-      return vec ? launch<kPer, 4, true, false, true>(table, n, idx, out, m, clip, s)
-                 : launch<kPer, 1, true, false, true>(table, n, idx, out, m, clip, s);
-    default:
-      return vec ? launch<kPer, 4, false, true>(table, n, idx, out, m, clip, s)
-                 : launch<kPer, 1, false, true>(table, n, idx, out, m, clip, s);
-  }
 }
 
 }  // namespace
 
-// mode: 0 fill, 1 clip.  route: 0 by the table's size, else a Route.
-// per_thread: elements a thread owns (4, 8 or 16; 0 for the default).
+// mode: 0 fill (jnp.take), 1 clip (x.reshape(-1)[i]).
 extern "C" int mq3d_gather(const void* table, int n, const void* idx, void* out,
-                           long long m, int mode, int route, int per_thread,
-                           void* stream) {
+                           long long m, int mode, void* stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
-  const long long bytes = static_cast<long long>(n) * 4;
-  if (n < 0 || (mode != 0 && mode != 1) || (mode == 1 && n == 0) || route < 0 ||
-      route > kLdgL2 || (route == kShared && kBarBytes + bytes > kMaxSmem))
+  if (n < 0 || (mode != 0 && mode != 1) || (mode == 1 && n == 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kAuto) route = kLdg;
-  const bool vec = aligned16(idx) && aligned16(out);
-  const bool clip = mode == 1;
   auto t = static_cast<const float*>(table);
   auto i = static_cast<const int*>(idx);
   auto o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (per_thread) {
-    case 4: return static_cast<int>(dispatch<4>(route, vec, t, n, i, o, m, clip, s));
-    case 0:
-    case 8: return static_cast<int>(dispatch<8>(route, vec, t, n, i, o, m, clip, s));
-    case 16: return static_cast<int>(dispatch<16>(route, vec, t, n, i, o, m, clip, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool clip = mode == 1;
+  const cudaError_t err = aligned16(idx) && aligned16(out)
+                              ? launch<4>(t, n, i, o, m, clip, s)
+                              : launch<1>(t, n, i, o, m, clip, s);
+  return static_cast<int>(err);
 }

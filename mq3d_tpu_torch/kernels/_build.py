@@ -50,8 +50,8 @@ _SIGNATURES = {
     "mq3d_patch_lookup": (_P, _P, _P, _P, _I, _I, _I, _P),
     # (y, u, v, out, N, H, W, stream)
     "mq3d_i420_to_bgr": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # (table, n, idx, out, m, mode, route, per_thread, stream)
-    "mq3d_gather": (_P, _I, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
+    # (table, n, idx, out, m, mode, stream)
+    "mq3d_gather": (_P, _I, _P, _P, ctypes.c_longlong, _I, _P),
 }
 
 _lock = threading.Lock()

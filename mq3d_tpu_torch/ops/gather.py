@@ -63,13 +63,11 @@ def _check(table, idx, mode):
         raise ValueError("gather: clip mode needs a table with an element")
 
 
-def gather(table: torch.Tensor, idx: torch.Tensor, mode: str = "fill",
-           route: int = 0, per_thread: int = 0) -> torch.Tensor:
+def gather(table: torch.Tensor, idx: torch.Tensor, mode: str = "fill") -> torch.Tensor:
     """out[i] = table[idx[i]]: (n,) f32, (m,) i32 -> (m,) f32, with `mode`'s
     rule for out-of-range indices.
 
-    CUDA tensors launch K3 (`route` 0 and `per_thread` 0: chosen by the
-    kernel from the table's size); CPU tensors take the plain version."""
+    CUDA tensors launch K3; CPU tensors take the plain version."""
     _check(table, idx, mode)
     if table.device.type == "cpu":
         return gather_plain(table, idx, mode)
@@ -85,8 +83,7 @@ def gather(table: torch.Tensor, idx: torch.Tensor, mode: str = "fill",
     lib = _build.library()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.mq3d_gather(table.data_ptr(), table.numel(), idx.data_ptr(),
-                          out.data_ptr(), idx.numel(), MODES[mode], route,
-                          per_thread, stream)
+                          out.data_ptr(), idx.numel(), MODES[mode], stream)
     _build.check(err, "gather")
     _build.count_launch("gather")
     return out

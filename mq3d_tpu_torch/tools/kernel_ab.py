@@ -4,7 +4,7 @@
     for f in patch_lookup.cu i420.cu gather.cu; do
         git show <rev>:mq3d_tpu_torch/csrc/$f > build/old_csrc/$f; done
     python -m mq3d_tpu_torch.tools.kernel_ab --old-csrc build/old_csrc \
-        [--old-gather-abi pr7|current] [--k3-variants] [--json <file>]
+        [--old-gather-abi no-mode|mode] [--k3-granularity] [--json <file>]
 
 Builds <dir>/*.cu into a second library and times both on the same inputs,
 in the order old, new, new, old, each a median of 20 cold-L2 launches
@@ -15,17 +15,12 @@ gather probe's tables (0.125 MB, the probe's CPU test size, then 4 to 128
 MB; 2^19 uniform in-range indices, where the old and new kernels compute
 the same thing) beside torch.take, the byte bound and the sector-counted
 bound (tools/probe_gather.py `traffic`).  The old K1/K2 entry points take
-the current arguments; the old gather takes PR 7's (table, n, idx, out, m,
-stream) with --old-gather-abi pr7 (the default), or the current ones.
-With --k3-variants it also times K3's table loads that bypass L1
-("global"), that allocate in it ("ldg", the default) and that go through
-a table staged in shared memory ("shared", tables up to 227 KB) at 4, 8
-and 16 elements a thread, forward then backward, the old and new kernels
-in turns once more after them, the cost of a random draw in HBM
-(`k3_granularity`) and, last, whether lines loaded under an L2 evict_last
-policy survive the timer's flush (`k3_persistence`).  It
-prints the timer's floor (an empty launch under the same timer).  Needs the
-card.
+the current arguments; the old gather takes (table, n, idx, out, m,
+stream), the entry point before the out-of-range modes, with
+--old-gather-abi no-mode (the default), or the current ones with
+--old-gather-abi mode.  With --k3-granularity it also times what a random
+draw costs in HBM (`k3_granularity`).  It prints the timer's floor (an
+empty launch under the same timer).  Needs the card.
 """
 
 from __future__ import annotations
@@ -48,11 +43,9 @@ from mq3d_tpu_torch.utils.devtime import bound_ms, floor_ms, time_ms
 
 _ENTRY_POINTS = ("mq3d_patch_lookup", "mq3d_i420_to_bgr", "mq3d_gather")
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_GATHER_ABIS = {"pr7": (_P, _I, _P, _P, _LL, _P),
-                "current": _build._SIGNATURES["mq3d_gather"]}
+_GATHER_ABIS = {"no-mode": (_P, _I, _P, _P, _LL, _P),
+                "mode": _build._SIGNATURES["mq3d_gather"]}
 K3_TABLE_MB = (0.125,) + probe_gather.TABLE_MB
-K3_ROUTES = {"global": 1, "shared": 3, "ldg": 4}
-K3_PER_THREAD = (4, 8, 16)
 
 
 def load_old(csrc: Path, gather_abi: str):
@@ -121,15 +114,15 @@ def k2(old_lib, new_lib, rng) -> dict:
     return {"shape": [N, H, W], **res}
 
 
-def k3(old_lib, new_lib, gather_abi, variants) -> list:
+def k3(old_lib, new_lib, gather_abi) -> list:
     rows = []
     for mb in K3_TABLE_MB:
         tab, idx = probe_gather.make_inputs(int(mb * 2 ** 20) // 4, device="cuda")
         n, m = tab.numel(), idx.numel()
         out = torch.empty(m, dtype=torch.float32, device="cuda")
         ptrs = (tab.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m)
-        new_args = ptrs + (0, 0, 0)  # fill mode, route and threads by size
-        old_args = ptrs if gather_abi == "pr7" else new_args
+        new_args = ptrs + (0,)  # fill mode
+        old_args = ptrs if gather_abi == "no-mode" else new_args
         ref = gather_plain(tab, idx)
         t = probe_gather.traffic(tab, idx)
         res = _ab(_calls("mq3d_gather", old_lib, new_lib, new_args, old_args), out, ref,
@@ -138,36 +131,9 @@ def k3(old_lib, new_lib, gather_abi, variants) -> list:
         res["torch_take_ms"] = time_ms(lambda: torch.take(tab, idx64))
         res["sector_bound_ms"], _ = bound_ms(t["sector_bytes"], m)
         res["sector_bytes"] = t["sector_bytes"]
-        if variants:
-            res["variants"] = k3_variants(new_lib, ptrs, out, ref)
-            res["again"] = in_turns(*_calls("mq3d_gather", old_lib, new_lib, new_args,
-                                            old_args).values())
         rows.append({"table_mb": mb, "indices": m, "fits_in": probe_gather.fits_in(n * 4),
                      **res})
     return rows
-
-
-def k3_variants(lib, ptrs, out, ref) -> dict:
-    """Each route at each per-thread count: checked, then timed forward and
-    backward (two medians each)."""
-    stream = torch.cuda.current_stream().cuda_stream
-    calls = {}
-    for route, r in K3_ROUTES.items():
-        if route == "shared" and ptrs[1] * 4 + 16 > probe_gather.SHARED_BYTES:
-            continue
-        for per in K3_PER_THREAD:
-            calls[f"{route}/{per}"] = (lambda r=r, per=per: _build.check(
-                lib.mq3d_gather(*ptrs, 0, r, per, stream), f"gather {r}/{per}"))
-    res = {}
-    for name, fn in calls.items():
-        out.zero_()
-        fn()
-        torch.cuda.synchronize()
-        res[name] = {"equal": probe_gather.equal_bits(out, ref)}
-    order = list(calls)
-    for name in order + order[::-1]:
-        res[name].setdefault("ms", []).append(time_ms(calls[name]))
-    return res
 
 
 def k3_granularity(lib, rng) -> dict:
@@ -175,9 +141,9 @@ def k3_granularity(lib, rng) -> dict:
     in its own 32-byte sector, the sectors chosen as one per 64-byte
     segment, both sectors of 2^18 segments, or all four sectors of 2^17
     128-byte lines, in shuffled order, then the probe's uniform draws as
-    they come and sorted; timed with the default route, forward and
-    backward.  If HBM served 32-byte sectors at its byte rate, the first
-    three would take the same time and sorting would change nothing."""
+    they come and sorted; timed forward and backward.  If HBM served
+    32-byte sectors at its byte rate, the first three would take the same
+    time and sorting would change nothing."""
     n, m = 128 * 2 ** 20 // 4, 1 << 19
     tab, uniform = probe_gather.make_inputs(n, m, device="cuda")
     uniform = uniform.cpu().numpy()
@@ -196,40 +162,24 @@ def k3_granularity(lib, rng) -> dict:
             ix = np.sort(uniform) if "sorted" in name else uniform
         idx = torch.from_numpy(ix.astype(np.int32)).cuda()
         calls[name] = (lambda idx=idx: _build.check(lib.mq3d_gather(
-            tab.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m, 0, 0, 0, stream),
+            tab.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m, 0, stream),
             "gather granularity"))
         calls[name]()
         torch.cuda.synchronize()
         res[name] = {"equal": probe_gather.equal_bits(out, gather_plain(tab, idx)),
-                     "sectors": int(torch.unique(idx // 8).numel())}
+                     "sectors": int(torch.unique(idx // 8).numel()),
+                     "segments_64b": int(torch.unique(idx // 16).numel())}
     order = list(calls)
     for name in order + order[::-1]:
         res[name].setdefault("ms", []).append(time_ms(calls[name]))
     return res
 
 
-def k3_persistence(lib) -> dict:
-    """Do table lines loaded under an L2 evict_last policy survive the
-    timer's flush?  At a 32 MB table: the default route timed, then the
-    evict_last route ("ldg_l2") launched 20 times, then the default route
-    timed again.  A faster second time means they do, and every cold-L2
-    time taken after them finds part of the table in L2."""
-    tab, idx = probe_gather.make_inputs(32 * 2 ** 20 // 4, device="cuda")
-    out = torch.empty(idx.numel(), dtype=torch.float32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (tab.data_ptr(), tab.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(), 0)
-    default = lambda: _build.check(lib.mq3d_gather(*args, 0, 0, stream), "gather")
-    before = [time_ms(default), time_ms(default)]
-    for _ in range(20):
-        _build.check(lib.mq3d_gather(*args, 5, 8, stream), "gather ldg_l2")
-    return {"before_ms": before, "after_ms": [time_ms(default), time_ms(default)]}
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", type=Path, required=True)
-    ap.add_argument("--old-gather-abi", choices=sorted(_GATHER_ABIS), default="pr7")
-    ap.add_argument("--k3-variants", action="store_true")
+    ap.add_argument("--old-gather-abi", choices=sorted(_GATHER_ABIS), default="no-mode")
+    ap.add_argument("--k3-granularity", action="store_true")
     ap.add_argument("--json", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -247,10 +197,9 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     result = {"device": smi, "floor_ms": floor, "k1": k1(old_lib, new_lib, rng),
               "k2": k2(old_lib, new_lib, rng),
-              "k3": k3(old_lib, new_lib, args.old_gather_abi, args.k3_variants)}
-    if args.k3_variants:
+              "k3": k3(old_lib, new_lib, args.old_gather_abi)}
+    if args.k3_granularity:
         result["k3_granularity"] = k3_granularity(new_lib, rng)
-        result["k3_persistence"] = k3_persistence(new_lib)
     for name in ("k1", "k2"):
         r = result[name]
         print(f"[{name}] {r['shape']}: old {r['old_ms']} ms, new {r['new_ms']} ms "
@@ -266,18 +215,10 @@ def main(argv=None) -> int:
               f"({r['bound_ms'] / r['new_mean_ms']:.0%} of new), sector bound "
               f"{r['sector_bound_ms']:.4f} ms ({r['sector_bound_ms'] / r['new_mean_ms']:.0%}); "
               f"equal old {r['old_equal']} new {r['new_equal']}", flush=True)
-        if "again" in r:
-            print(f"[k3]   again after the variants: old {r['again']['old_ms']} ms, new "
-                  f"{r['again']['new_ms']} ms", flush=True)
-        for name, v in r.get("variants", {}).items():
-            print(f"[k3]   {name}: {v['ms']} ms, equal {v['equal']}", flush=True)
     for name, v in result.get("k3_granularity", {}).items():
-        print(f"[k3 granularity] 128 MB, {v['sectors']} sectors, {name}: {v['ms']} ms, "
-              f"equal {v['equal']}", flush=True)
-    if "k3_persistence" in result:
-        p = result["k3_persistence"]
-        print(f"[k3 persistence] 32 MB, default route: {p['before_ms']} ms, after 20 "
-              f"evict_last launches {p['after_ms']} ms", flush=True)
+        print(f"[k3 granularity] 128 MB, {name}: {v['sectors']} sectors in "
+              f"{v['segments_64b']} 64-byte segments: {v['ms']} ms, equal {v['equal']}",
+              flush=True)
     line = json.dumps(result)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
@@ -285,7 +226,6 @@ def main(argv=None) -> int:
     print(line)
     ok = all(result[k][f"{w}_equal"] for k in ("k1", "k2") for w in ("old", "new"))
     ok &= all(r[f"{w}_equal"] for r in result["k3"] for w in ("old", "new"))
-    ok &= all(v["equal"] for r in result["k3"] for v in r.get("variants", {}).values())
     ok &= all(v["equal"] for v in result.get("k3_granularity", {}).values())
     return 0 if ok else 1
 
