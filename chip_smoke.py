@@ -231,12 +231,10 @@ def check_k2(rng) -> dict:
 
 
 def _with_edges(idx: torch.Tensor, n: int):
-    """idx with every 997th index replaced by the edges of a table of n:
-    -1, -n, -n-1, n-1, n, n+7, INT32 min and max in turn."""
+    """idx with every 997th index replaced by probe_gather.edges(n) in turn."""
     out = idx.clone()
     k = out[::997].numel()
-    edges = torch.tensor([-1, -n, -n - 1, n - 1, n, n + 7, -2 ** 31, 2 ** 31 - 1],
-                         dtype=torch.int32, device=idx.device)
+    edges = torch.tensor(probe_gather.edges(n), dtype=torch.int32, device=idx.device)
     out[::997] = edges.repeat(k // 8 + 1)[:k]
     return out, k
 

@@ -14,7 +14,7 @@
 // Bound on the H100: memory, but not its byte rate.  The probe's 2^19
 // uniform draws move 4 MB of indices and outputs and touch 4 to 16 MB of
 // 32-byte table sectors, a few microseconds at 3.35 TB/s.  Timed from a
-// cold L2 (mq3d_tpu_torch/tools/kernel_ab.py), a launch costs ~5 us before
+// cold L2 (mq3d_tpu_torch/utils/devtime.py), a launch costs ~5 us before
 // it does anything; tables that fit the L2 then pay two dependent trips to
 // HBM (the index, then the table); and beyond the L2 a random draw costs
 // HBM a 64-byte access, at about two thirds of its byte rate: draws that
@@ -26,9 +26,9 @@
 // only then stores.  The grid holds as many blocks as fit on the card at
 // once (SM count x occupancy), or fewer when the indices need fewer chunks,
 // and walks the chunks grid-stride.  Table loads take the read-only path
-// and allocate in L1 (ld.global.nc).  The alternatives were timed against
-// this one in turns and lost at the probe's sizes: loads that bypass L1,
-// an L2 evict_last policy on the table (its lines also outlive the
+// and allocate in L1 (__ldg).  The alternatives were timed against this
+// one in turns (PERF.md) and lost at the probe's sizes: loads that bypass
+// L1, an L2 evict_last policy on the table (its lines also outlive the
 // launch and the timer's flush), a table staged in shared memory by
 // cp.async.bulk (0.125 MB), and 4 or 16 elements a thread (no change).
 // Unaligned index or output pointers take scalar index loads; with aligned
@@ -56,13 +56,9 @@ __device__ __forceinline__ int resolve(int i, int n, bool clip, bool* ok) {
 }
 
 // table[j] if ok, else NaN; no load is issued when !ok.
-__device__ __forceinline__ float load_table(const float* table, int j, bool ok) {
-  float v = __uint_as_float(kNaN);
-  asm volatile(
-      "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
-      "@q ld.global.nc.f32 %0, [%1];\n}\n"
-      : "+f"(v) : "l"(table + j), "r"(static_cast<unsigned>(ok)));
-  return v;
+__device__ __forceinline__ float load_table(const float* __restrict__ table, int j,
+                                            bool ok) {
+  return ok ? __ldg(table + j) : __uint_as_float(kNaN);
 }
 
 // kVec is 4 (16-byte index and output vectors) or 1.  The chunks cover the

@@ -4,7 +4,7 @@
     for f in patch_lookup.cu i420.cu gather.cu; do
         git show <rev>:mq3d_tpu_torch/csrc/$f > build/old_csrc/$f; done
     python -m mq3d_tpu_torch.tools.kernel_ab --old-csrc build/old_csrc \
-        [--old-gather-abi no-mode|mode] [--k3-granularity] [--json <file>]
+        [--json <file>]
 
 Builds <dir>/*.cu into a second library and times both on the same inputs,
 in the order old, new, new, old, each a median of 20 cold-L2 launches
@@ -15,12 +15,11 @@ gather probe's tables (0.125 MB, the probe's CPU test size, then 4 to 128
 MB; 2^19 uniform in-range indices, where the old and new kernels compute
 the same thing) beside torch.take, the byte bound and the sector-counted
 bound (tools/probe_gather.py `traffic`).  The old K1/K2 entry points take
-the current arguments; the old gather takes (table, n, idx, out, m,
-stream), the entry point before the out-of-range modes, with
---old-gather-abi no-mode (the default), or the current ones with
---old-gather-abi mode.  With --k3-granularity it also times what a random
-draw costs in HBM (`k3_granularity`).  It prints the timer's floor (an
-empty launch under the same timer).  Needs the card.
+the current arguments; an old gather.cu whose entry point has no `int
+mode` argument (before the out-of-range modes) is called as (table, n, idx,
+out, m, stream).  Then it times what a random draw costs in HBM
+(`k3_granularity`) and prints the timer's floor (an empty launch under the
+same timer).  Needs the card.
 """
 
 from __future__ import annotations
@@ -43,18 +42,26 @@ from mq3d_tpu_torch.utils.devtime import bound_ms, floor_ms, time_ms
 
 _ENTRY_POINTS = ("mq3d_patch_lookup", "mq3d_i420_to_bgr", "mq3d_gather")
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_GATHER_ABIS = {"no-mode": (_P, _I, _P, _P, _LL, _P),
-                "mode": _build._SIGNATURES["mq3d_gather"]}
+# The gather entry point before the out-of-range modes: no `mode` argument.
+_GATHER_NO_MODE = (_P, _I, _P, _P, _LL, _P)
 K3_TABLE_MB = (0.125,) + probe_gather.TABLE_MB
 
 
-def load_old(csrc: Path, gather_abi: str):
+def has_modes(csrc: Path) -> bool:
+    """Whether the old gather.cu's entry point takes the out-of-range mode."""
+    text = (csrc / "gather.cu").read_text()
+    return "int mode" in text[text.index('extern "C" int mq3d_gather('):]
+
+
+def load_old(csrc: Path):
     lib_path = _build.BUILD_DIR / "kernel_ab" / "libmq3d_kernels_old.so"
     report = _build.compile_library(sorted(csrc.glob("*.cu")), lib_path)
     print(f"[build] old sources {sorted(p.name for p in csrc.glob('*.cu'))}\n{report}",
           flush=True)
+    if has_modes(csrc):
+        return _build.load(lib_path, _ENTRY_POINTS)
     lib = _build.load(lib_path, _ENTRY_POINTS[:2])
-    lib.mq3d_gather.argtypes = list(_GATHER_ABIS[gather_abi])
+    lib.mq3d_gather.argtypes = list(_GATHER_NO_MODE)
     lib.mq3d_gather.restype = ctypes.c_int
     return lib
 
@@ -114,7 +121,7 @@ def k2(old_lib, new_lib, rng) -> dict:
     return {"shape": [N, H, W], **res}
 
 
-def k3(old_lib, new_lib, gather_abi) -> list:
+def k3(old_lib, new_lib, old_modes: bool) -> list:
     rows = []
     for mb in K3_TABLE_MB:
         tab, idx = probe_gather.make_inputs(int(mb * 2 ** 20) // 4, device="cuda")
@@ -122,7 +129,7 @@ def k3(old_lib, new_lib, gather_abi) -> list:
         out = torch.empty(m, dtype=torch.float32, device="cuda")
         ptrs = (tab.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m)
         new_args = ptrs + (0,)  # fill mode
-        old_args = ptrs if gather_abi == "no-mode" else new_args
+        old_args = new_args if old_modes else ptrs
         ref = gather_plain(tab, idx)
         t = probe_gather.traffic(tab, idx)
         res = _ab(_calls("mq3d_gather", old_lib, new_lib, new_args, old_args), out, ref,
@@ -178,8 +185,6 @@ def k3_granularity(lib, rng) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", type=Path, required=True)
-    ap.add_argument("--old-gather-abi", choices=sorted(_GATHER_ABIS), default="no-mode")
-    ap.add_argument("--k3-granularity", action="store_true")
     ap.add_argument("--json", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -191,15 +196,14 @@ def main(argv=None) -> int:
     _build.build(force=True)
     print(f"[build] current sources\n{_build.last_build_report()}", flush=True)
     new_lib = _build.library()
-    old_lib = load_old(args.old_csrc, args.old_gather_abi)
+    old_lib = load_old(args.old_csrc)
     floor = floor_ms()
     print(f"[floor] an empty launch under the timer: {floor:.4f} ms", flush=True)
     rng = np.random.default_rng(0)
     result = {"device": smi, "floor_ms": floor, "k1": k1(old_lib, new_lib, rng),
               "k2": k2(old_lib, new_lib, rng),
-              "k3": k3(old_lib, new_lib, args.old_gather_abi)}
-    if args.k3_granularity:
-        result["k3_granularity"] = k3_granularity(new_lib, rng)
+              "k3": k3(old_lib, new_lib, has_modes(args.old_csrc)),
+              "k3_granularity": k3_granularity(new_lib, rng)}
     for name in ("k1", "k2"):
         r = result[name]
         print(f"[{name}] {r['shape']}: old {r['old_ms']} ms, new {r['new_ms']} ms "
@@ -215,7 +219,7 @@ def main(argv=None) -> int:
               f"({r['bound_ms'] / r['new_mean_ms']:.0%} of new), sector bound "
               f"{r['sector_bound_ms']:.4f} ms ({r['sector_bound_ms'] / r['new_mean_ms']:.0%}); "
               f"equal old {r['old_equal']} new {r['new_equal']}", flush=True)
-    for name, v in result.get("k3_granularity", {}).items():
+    for name, v in result["k3_granularity"].items():
         print(f"[k3 granularity] 128 MB, {name}: {v['sectors']} sectors in "
               f"{v['segments_64b']} 64-byte segments: {v['ms']} ms, equal {v['equal']}",
               flush=True)
@@ -226,7 +230,7 @@ def main(argv=None) -> int:
     print(line)
     ok = all(result[k][f"{w}_equal"] for k in ("k1", "k2") for w in ("old", "new"))
     ok &= all(r[f"{w}_equal"] for r in result["k3"] for w in ("old", "new"))
-    ok &= all(v["equal"] for v in result.get("k3_granularity", {}).values())
+    ok &= all(v["equal"] for v in result["k3_granularity"].values())
     return 0 if ok else 1
 
 

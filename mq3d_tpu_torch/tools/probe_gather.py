@@ -17,12 +17,12 @@ It makes the TPU probe's seven calls in its order (CALLS: take at 4 and 16
 MB, index2d and grid at 4 MB, take at 32, 64 and 128 MB; 2^19 indices, the
 same numpy generator and seed), or `take` at each of --sizes-mb.  Each call
 gathers once with K3 and checks the result against the plain version bit
-for bit; on the card it also times K3 and torch.take from a cold L2
-(utils/devtime.py) beside two bounds: the bytes the call must move (indices
-and outputs once, each distinct table element once) and the 32-byte sectors
-it must fetch (each distinct sector once), both over the HBM rate.  One
-line per call, then one JSON line.  On the CPU (--device cpu) it runs the
-plain version and times nothing.
+for bit; on the card it also times K3, the plain version and torch.take
+from a cold L2 (utils/devtime.py) beside two bounds: the bytes the call
+must move (indices and outputs once, each distinct table element once) and
+the 32-byte sectors it must fetch (each distinct sector once), both over
+the HBM rate.  One line per call, then one JSON line.  On the CPU (--device
+cpu) it runs the plain version and times nothing.
 """
 
 from __future__ import annotations
@@ -57,6 +57,12 @@ def make_inputs(table_elems: int, n_idx: int = N_IDX, seed: int = 0,
     tab = rng.random(table_elems).astype(np.float32)
     idx = rng.integers(0, table_elems, n_idx).astype(np.int32)
     return torch.from_numpy(tab).to(device), torch.from_numpy(idx).to(device)
+
+
+def edges(n: int) -> list:
+    """The out-of-range cases of a table of n elements, and its ends:
+    -1, -n, -n-1, n-1, n, n+7, INT32 min and max."""
+    return [-1, -n, -n - 1, n - 1, n, n + 7, -2 ** 31, 2 ** 31 - 1]
 
 
 def fits_in(table_bytes: int) -> str:
@@ -99,6 +105,7 @@ def probe(call: str, table_mb: float, device, n_idx: int = N_IDX, seed: int = 0)
 
         idx64 = idx.long()
         row["ms"] = time_ms(lambda: gather(tab, idx, mode))
+        row["plain_ms"] = time_ms(lambda: gather_plain(tab, idx, mode))
         row["torch_take_ms"] = time_ms(lambda: torch.take(tab, idx64))
         t = traffic(tab, idx, mode)
         row["bound_ms"] = bound_ms(t["bytes"], n_idx)[0]  # one resolve per index
@@ -114,7 +121,8 @@ def run(calls=CALLS, device="cuda") -> list:
         t0 = time.perf_counter()
         row = probe(call, mb, dev)
         rows.append(row)
-        timing = (f"K3 {row['ms']:.4f} ms, torch.take {row['torch_take_ms']:.4f} ms, "
+        timing = (f"K3 {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, torch.take "
+                  f"{row['torch_take_ms']:.4f} ms, "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%}), "
                   f"sector bound {row['sector_bound_ms']:.4f} ms "
                   f"({row['sector_bound_ms'] / row['ms']:.0%}), "

@@ -10,8 +10,9 @@ copy and vector indices, its scalar staging (odd PS or an unaligned patch),
 its scalar indices (V % 4 != 0 or unaligned rows) and its one-buffer ring
 (PS > 170); K2's 16-pixel vector strips staged in shared memory (past
 48 KB of it at W=8208) and its scalar strips (W % 16 != 0, rows too wide
-to stage at W=38752, or unaligned planes); K3's routes (shared memory, L2,
-HBM) in both out-of-range modes, with vector and scalar indices.
+to stage at W=38752, or unaligned planes); K3 at tables that fit shared
+memory, the L2 or neither, in both out-of-range modes, with vector and
+scalar indices.
 
 Tolerance: exact (K1 and K3 are gathers, K2 integer arithmetic).
 """
@@ -132,20 +133,21 @@ def test_k3_out_of_range_reads_nan(cuda_device, mode, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("table_mb", [0.125, 16, 128])  # shared, L2, HBM routes
+@pytest.mark.parametrize("table_mb", [0.125, 16, 128])  # fits shared memory, L2, HBM
 @pytest.mark.parametrize("mode", ["fill", "clip"])
 @pytest.mark.parametrize("m,idx_offset,table_offset", [
     (1 << 19, 0, 0), (4099, 1, 0), (4097, 0, 3), (3, 2, 1), (1 << 19, 4, 4)])
-def test_k3_routes_match_plain(cuda_device, table_mb, mode, m, idx_offset, table_offset):
-    """Every route of K3 (chosen by the table's size) against the plain
-    version bit for bit, in both modes, on in-range and edge indices, at
-    aligned and offset pointers and at m not a multiple of 4."""
+def test_k3_matches_plain_at_every_level(cuda_device, table_mb, mode, m, idx_offset,
+                                         table_offset):
+    """K3 against the plain version bit for bit at a table that fits shared
+    memory, one that fits the L2 and one that does not, in both modes, on
+    in-range and edge indices, with vector and scalar index loads (aligned
+    and offset pointers) and m not a multiple of 4."""
+    from mq3d_tpu_torch.tools.probe_gather import edges as edge_values
     from mq3d_tpu_torch.tools.probe_gather import make_inputs
 
     table, idx = make_inputs(int(table_mb * 2 ** 20) // 4, m, seed=7, device=cuda_device)
-    n = table.numel()
-    edges = torch.tensor([-1, -n, -n - 1, n - 1, n, n + 7, -2 ** 31, 2 ** 31 - 1],
-                         dtype=torch.int32, device=cuda_device)
+    edges = torch.tensor(edge_values(table.numel()), dtype=torch.int32, device=cuda_device)
     pos = torch.arange(0, m, max(1, m // 64), device=cuda_device)
     idx[pos] = edges.repeat(len(pos) // 8 + 1)[:len(pos)]
     if table_offset:

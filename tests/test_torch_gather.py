@@ -71,9 +71,9 @@ def _check(call, mode, table, idx):
 
 
 def _edge_indices(n: int, m: int, seed: int) -> torch.Tensor:
-    """-1, -n, -n-1, n-1, n, n+7, INT32 min and max, then uniform in-range
-    indices up to m."""
-    edges = np.array([-1, -n, -n - 1, n - 1, n, n + 7, -2 ** 31, 2 ** 31 - 1], np.int64)
+    """probe_gather.edges(n) (-1, -n, -n-1, n-1, n, n+7, INT32 min and max),
+    then uniform in-range indices up to m."""
+    edges = np.array(probe_gather.edges(n), np.int64)
     rest = np.random.default_rng(seed).integers(0, n, m - edges.size)
     return torch.from_numpy(np.concatenate([edges, rest]).astype(np.int32))
 
