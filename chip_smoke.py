@@ -52,6 +52,18 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      maps, poses against the ground truth, the colorless cloud and the
      colored outputs must pass their gates.  Last, the device programs of
      steps 1-2 timed alone at these shapes
+  8. the user's tools after reconstruction, on the card: on phase 7's
+     furnished-room session, the FBX export of --export-fbx read back
+     against color_mesh.ply, build_colmap_project --include_points
+     (cameras, images, poses in the COLMAP frame, one Point3D per point of
+     step 5's sampling at the shipped ratio), compare_mesh_to_ground_truth
+     against the scene's boxes (mean_to_gt under 2 voxels; nearest_distances
+     timed, card == CPU on a 20 000-point subsample), evaluate_mesh_quality
+     on the PLY and its FBX (equal raw metrics) and downsample_fbx_mesh
+     --ratio 0.25; then the step CLIs on phase 5's small capture (K2 and
+     K1 launched, outputs equal to phase 5's card run) and
+     run_full_pipeline --profile --export-fbx (a trace with the stages and
+     CUDA kernel events, K1 and K2 among them)
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
 """
@@ -79,7 +91,11 @@ from mq3d_tpu_torch.config.configs import (
     colorless_recipe,
 )
 from mq3d_tpu_torch.dataio.data_io import DataIO
-from mq3d_tpu_torch.dataio.ply import read_ply
+from mq3d_tpu_torch.dataio.ply import TriangleMesh, read_ply, write_ply_mesh
+from mq3d_tpu_torch.eval.metrics import nearest_distances
+from mq3d_tpu_torch.export.colmap import qvec2rotmat, read_cameras_binary, read_images_binary
+from mq3d_tpu_torch.export.fbx import read_fbx_mesh
+from mq3d_tpu_torch.geometry import quaternion as quat
 from mq3d_tpu_torch.kernels import _build
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.models.transforms import CoordinateSystem
@@ -88,6 +104,7 @@ from mq3d_tpu_torch.ops import tsdf as tsdf_ops
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
 from mq3d_tpu_torch.ops.gather import MODES as gather_modes
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
+from mq3d_tpu_torch.ops.sampling import sample_points_uniformly
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.yuv import bgr_to_gray, yuv420_to_8uc3, yuv420_to_bgr
 from mq3d_tpu_torch.pipeline.processor import run_full_pipeline
@@ -95,6 +112,16 @@ from mq3d_tpu_torch.pipeline.stages import YUV_BATCH
 from mq3d_tpu_torch.recon import confidence, refine
 from mq3d_tpu_torch.recon.integrate import integrate_multi, tsdf_config_from_integration
 from mq3d_tpu_torch.recon.reconstruct import load_depth_datasets
+from mq3d_tpu_torch.scripts import (
+    build_colmap_project,
+    compare_mesh_to_ground_truth,
+    convert_depth_to_linear_map,
+    convert_yuv_to_rgb,
+    downsample_fbx_mesh,
+    evaluate_mesh_quality,
+    reconstruct_scene,
+)
+from mq3d_tpu_torch.scripts import run_full_pipeline as pipeline_cli
 from mq3d_tpu_torch.testing.synthetic import (
     ROOM_CLUTTER,
     SyntheticSceneConfig,
@@ -509,20 +536,27 @@ def compare_colored(a: Path, b: Path):
     return same, diff
 
 
+# Phase 5's small capture and its colored-recipe settings (phase 8 runs
+# the step CLIs on the same capture).
+SMALL_SCENE = SyntheticSceneConfig(n_frames=12)
+
+
+def small_configs() -> PipelineConfigs:
+    return colored_recipe(dict(interval=4, max_iteration=12, min_triangle_count=100),
+                          voxel_size=0.02, block_resolution=16, block_count=4096,
+                          grid_dim=16, depth_max=4.0, trunc_voxel_multiplier=4.0,
+                          chunk_active_capacity=4096, integrate_tile=256,
+                          frames_per_batch=8)
+
+
 def small_cpu_vs_card(work: Path) -> None:
     """Phase 5: a small capture through the colored recipe on the CPU (plain
     PyTorch) and on the card."""
-    scene = SyntheticSceneConfig(n_frames=12)
-    integration = dict(voxel_size=0.02, block_resolution=16, block_count=4096,
-                       grid_dim=16, depth_max=4.0, trunc_voxel_multiplier=4.0,
-                       chunk_active_capacity=4096, integrate_tile=256,
-                       frames_per_batch=8)
-    colour = dict(interval=4, max_iteration=12, min_triangle_count=100)
     sessions = {}
     for device in ("cpu", "cuda"):
         session = work / f"small_{device}"
-        write_synthetic_project(session, scene)
-        run_full_pipeline(session, colored_recipe(colour, **integration), device=device)
+        write_synthetic_project(session, SMALL_SCENE)
+        run_full_pipeline(session, small_configs(), device=device)
         sessions[device] = session
     same, diff = compare_colored(sessions["cpu"], sessions["cuda"])
     recon = sessions["cpu"] / "reconstruction"
@@ -981,6 +1015,231 @@ def check_colored_outputs(phase: str, session: Path, scene: SyntheticSceneConfig
     return checks, datasets
 
 
+# Phase 8: points sampled per mesh by compare_mesh_to_ground_truth (its
+# default), and the subsample held card against CPU.
+GT_SAMPLES = 100_000
+CPU_SUBSAMPLE = 20_000
+
+
+def ground_truth_mesh(scene: SyntheticSceneConfig) -> TriangleMesh:
+    """The scene's surfaces: the room box and each clutter box, 12
+    triangles per box."""
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4),
+             (1, 5, 7, 3)]
+    box = np.asarray([t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))], np.int64)
+    verts, tris = [], []
+    for lo, hi in [(scene.box_min, scene.box_max)] + list(scene.clutter):
+        tris.append(box + 8 * len(verts))
+        verts.append([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                      for z in (lo[2], hi[2])])
+    return TriangleMesh(np.asarray(verts, float).reshape(-1, 3), np.concatenate(tris))
+
+
+def read_points3d_records(path: Path) -> np.ndarray:
+    """points3D.bin as one structured array (every record without a track,
+    as build_colmap_project writes them: 51 bytes each)."""
+    data = path.read_bytes()
+    rec = np.dtype([("id", "<i8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                    ("error", "<f8"), ("track", "<u8")])
+    n = int(np.frombuffer(data[:8], "<u8")[0])
+    if len(data) != 8 + n * rec.itemsize:
+        raise AssertionError(f"points3D.bin holds tracks or a wrong count ({n} points, "
+                             f"{len(data)} bytes)")
+    return np.frombuffer(data[8:], rec)
+
+
+def exports_and_evaluation(work: Path, session: Path, scene: SyntheticSceneConfig,
+                           rc) -> None:
+    """Phase 8 on phase 7's furnished-room session (the shipped config at
+    full width): the FBX export of --export-fbx, build_colmap_project
+    --include_points, compare_mesh_to_ground_truth against the scene's own
+    surfaces (nearest_distances on the card, timed, and card == CPU on a
+    20 000-point subsample), evaluate_mesh_quality on the PLY and its FBX,
+    and downsample_fbx_mesh --ratio 0.25."""
+    recon = session / "reconstruction"
+    ply_path = recon / "color_mesh.ply"
+    ply = read_ply(ply_path)
+    secs = {}
+
+    t0 = time.perf_counter()
+    fbx_path = pipeline_cli.convert_reconstruction_mesh_to_fbx(session)
+    fbx = read_fbx_mesh(fbx_path)
+    secs["fbx"] = time.perf_counter() - t0
+    fbx_same = {
+        "vertices": bool(np.array_equal(fbx.vertices, ply.vertices)),
+        "triangles": bool(np.array_equal(fbx.triangles, ply.triangles)),
+        "colours": bool(np.array_equal(fbx.vertex_colors, ply.vertex_colors)),
+        "colours as uint8": bool(np.array_equal(np.round(fbx.vertex_colors * 255),
+                                                np.round(ply.vertex_colors * 255))),
+    }
+    log(f"[phase 8] FBX export of color_mesh.ply ({len(ply.vertices)} vertices, "
+        f"{len(ply.triangles)} triangles, {fbx_path.stat().st_size / 1e6:.1f} MB) read back "
+        f"equal: {fbx_same} ({secs['fbx']:.1f} s)")
+
+    # The shipped config samples no colored cloud (step 5 off): sample it
+    # as step 5 does, at the shipped ratio, for the Point3D records.
+    t0 = time.perf_counter()
+    data_io = DataIO(session)
+    pcd = sample_points_uniformly(ply, int(len(ply.vertices) * rc.points_per_vertex_ratio))
+    data_io.reconstruction.save_colored_pcd(pcd)
+    t1 = time.perf_counter()
+    model_dir = build_colmap_project.main(["--project_dir", str(session), "--include_points"])
+    secs["colmap"] = time.perf_counter() - t1
+    cameras = read_cameras_binary(model_dir / "cameras.bin")
+    images = read_images_binary(model_dir / "images.bin")
+    points = read_points3d_records(model_dir / "points3D.bin")
+    datasets = build_colmap_project.load_dataset_map(data_io, 1)
+    pose_err, n_frames = 0.0, sum(len(ds) for ds in datasets.values())
+    for cam_id, (side, ds) in enumerate(datasets.items(), start=1):
+        tf = ds.transforms.convert_coordinate_system(CoordinateSystem.COLMAP, is_camera=True)
+        by_ts = {int(ts): i for i, ts in enumerate(ds.timestamps)}
+        for im in images.values():
+            if im.camera_id != cam_id:
+                continue
+            i = by_ts[int(im.name.split("_")[1].split(".")[0])]
+            R = qvec2rotmat(im.qvec)  # world to camera
+            pose_err = max(pose_err, float(np.abs(-R.T @ im.tvec - tf.positions[i]).max()),
+                           float(np.abs(R.T - quat.as_matrix(tf.rotations[i])).max()))
+    # The CLI reads color.ply back (uint8 / 255) and truncates * 255 to
+    # uint8: within one unit of the stored colour.
+    stored = np.round(data_io.reconstruction.load_colored_pcd().colors * 255)
+    colmap_ok = {
+        "2 cameras": len(cameras) == 2,
+        "one image per frame of the colour datasets": len(images) == n_frames > 0,
+        "every image file copied": all((model_dir.parents[2] / "input" / im.name).is_file()
+                                       for im in images.values()),
+        "one Point3D per colored point": len(points) == len(pcd.points),
+        "Point3D ids and colours": bool(
+            np.array_equal(points["id"], np.arange(1, len(points) + 1))
+            and np.abs(points["rgb"] - stored).max() <= 1),
+        "image poses == dataset poses in the COLMAP frame (1e-6)": pose_err <= 1e-6,
+    }
+    log(f"[phase 8] COLMAP project: {len(cameras)} cameras, {len(images)} images (the "
+        f"optimized colour datasets' {n_frames} keyframes), {len(points)} Point3D "
+        f"({time.perf_counter() - t0:.1f} s with step 5's sampling, "
+        f"{secs['colmap']:.1f} s the CLI); largest pose difference {pose_err:.3g}; {colmap_ok}")
+
+    t0 = time.perf_counter()
+    gt_path = work / "ground_truth.ply"
+    write_ply_mesh(gt_path, ground_truth_mesh(scene))
+    cmp = compare_mesh_to_ground_truth.main(["--pred", str(ply_path), "--gt", str(gt_path),
+                                             "--samples", str(GT_SAMPLES)])
+    secs["compare"] = time.perf_counter() - t0
+    pred_pts, _ = compare_mesh_to_ground_truth.load_points(ply_path, GT_SAMPLES)
+    gt_pts, _ = compare_mesh_to_ground_truth.load_points(gt_path, GT_SAMPLES)
+    nn_ms = host_ms(lambda: nearest_distances(pred_pts, gt_pts, device="cuda"), reps=3)
+    rng = np.random.default_rng(SEED)
+    sub_p = pred_pts[rng.choice(len(pred_pts), CPU_SUBSAMPLE, replace=False)]
+    sub_g = gt_pts[rng.choice(len(gt_pts), CPU_SUBSAMPLE, replace=False)]
+    card = nearest_distances(sub_p, sub_g, device="cuda")
+    t1 = time.perf_counter()
+    cpu = nearest_distances(sub_p, sub_g, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    nn_equal = bool(np.array_equal(card, cpu))
+    vs = rc.depth_integration.voxel_size
+    log(f"[phase 8] mesh vs ground truth ({len(scene.clutter) + 1} boxes): "
+        f"{json.dumps(cmp)} ({secs['compare']:.1f} s)")
+    log(f"[phase 8] nearest_distances {len(pred_pts)} -> {len(gt_pts)} points on the card: "
+        f"{nn_ms:.1f} ms (median of 3, synchronized wall time with the copies); on a "
+        f"{CPU_SUBSAMPLE}-point subsample card == CPU bit for bit: {nn_equal} (CPU "
+        f"{cpu_s:.2f} s)")
+
+    t0 = time.perf_counter()
+    [q_ply] = evaluate_mesh_quality.main([str(ply_path)])
+    [q_fbx] = evaluate_mesh_quality.main([str(fbx_path)])
+    secs["quality"] = time.perf_counter() - t0
+    raw_ply, raw_fbx = dataclasses.asdict(q_ply.raw), dataclasses.asdict(q_fbx.raw)
+    for k in ("name", "path"):
+        raw_ply.pop(k), raw_fbx.pop(k)
+    log(f"[phase 8] quality of the PLY and its FBX: raw metrics equal "
+        f"{raw_ply == raw_fbx}; {raw_ply} ({secs['quality']:.1f} s)")
+
+    t0 = time.perf_counter()
+    down = downsample_fbx_mesh.main(["--input", str(fbx_path), "--output",
+                                     str(work / "decimated.fbx"), "--ratio", "0.25"])
+    secs["decimate"] = time.perf_counter() - t0
+    target = int(len(ply.triangles) * 0.25)
+    log(f"[phase 8] downsample_fbx_mesh --ratio 0.25: {len(ply.triangles)} -> "
+        f"{len(down.triangles)} triangles (target {target}; {secs['decimate']:.1f} s)")
+
+    checks = dict(
+        {f"FBX read back: {k}": v for k, v in fbx_same.items()},
+        **{f"COLMAP: {k}": v for k, v in colmap_ok.items()},
+        **{f"mean_to_gt < 2 voxels ({2 * vs} m)": cmp["mean_to_gt"] < 2 * vs,
+           "nearest_distances card == CPU": nn_equal,
+           "quality raw metrics PLY == FBX": raw_ply == raw_fbx,
+           "decimated within [0.75, 1.3] x target": 0.75 * target <= len(down.triangles)
+           <= 1.3 * target})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"export and evaluation checks failed: {failed}")
+
+
+def step_clis(work: Path) -> None:
+    """Phase 8, second part: the step CLIs on phase 5's small capture on the
+    card (launch counts reset just before each, read just after), their
+    outputs against phase 5's run_full_pipeline on the card, then
+    run_full_pipeline's CLI with --profile and --export-fbx on a fresh copy
+    of the capture."""
+    cfg_path = work / "small_colored.yml"  # JSON, which YAML reads
+    cfg_path.write_text(json.dumps(dataclasses.asdict(small_configs()), default=str))
+    session = work / "steps"
+    write_synthetic_project(session, SMALL_SCENE)
+    args = ["--project_dir", str(session), "--config", str(cfg_path)]
+    t0 = time.perf_counter()
+    launches = {}
+    for name, cli in (("convert_yuv_to_rgb", convert_yuv_to_rgb),
+                      ("convert_depth_to_linear_map", convert_depth_to_linear_map),
+                      ("reconstruct_scene", reconstruct_scene)):
+        _build.reset_launch_counts()
+        cli.main(args)
+        torch.cuda.synchronize()
+        launches[name] = _build.launch_counts()
+    ref = work / "small_cuda/reconstruction"
+    va = np.load(session / "reconstruction/colorless_vbg.npz")
+    vb = np.load(ref / "colorless_vbg.npz")
+    same = {"colorless_vbg.npz": all(np.array_equal(va[k], vb[k]) for k in vb.files)}
+    for name in MESHES[:2]:
+        ma, mb = read_ply(session / "reconstruction" / name), read_ply(ref / name)
+        same[name] = bool(np.array_equal(ma.vertices, mb.vertices)
+                          and np.array_equal(ma.triangles, mb.triangles))
+    log(f"[phase 8] step CLIs on phase 5's capture ({time.perf_counter() - t0:.1f} s), "
+        f"launches {launches}; outputs equal to phase 5's run_full_pipeline on the card: "
+        f"{same}")
+
+    profiled = work / "profiled"
+    write_synthetic_project(profiled, SMALL_SCENE)
+    t0 = time.perf_counter()
+    pipeline_cli.main(["--session_dir", str(profiled), "--config", str(cfg_path),
+                       "--profile", str(work / "trace"), "--export-fbx"])
+    secs = time.perf_counter() - t0
+    trace_path = work / "trace" / pipeline_cli.TRACE_NAME
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = {e.get("name") for e in events if e.get("cat") == "kernel"}
+    n_kernel_events = sum(e.get("cat") == "kernel" for e in events)
+    log(f"[phase 8] run_full_pipeline --profile --export-fbx: {secs:.1f} s, trace "
+        f"{trace_path.stat().st_size / 1e6:.1f} MB, {len(events)} events, "
+        f"{n_kernel_events} CUDA kernel events of {len(kernels)} kernels; hand kernels "
+        f"in it: {sorted(k for k in kernels if 'i420' in k or 'patch_lookup' in k)}")
+    checks = dict({f"{k} equal": v for k, v in same.items()}, **{
+        "K2 launched by convert_yuv_to_rgb": launches["convert_yuv_to_rgb"]["i420_to_bgr"] > 0,
+        "K1 launched by reconstruct_scene": launches["reconstruct_scene"]["patch_lookup"] > 0,
+        "trace names the stages": all(n in names for n in (
+            "convert_yuv_to_rgb", "convert_depth_to_linear", "reconstruct_scene",
+            "export_fbx")),
+        "trace holds CUDA kernel events": n_kernel_events > 0,
+        "K1 and K2 in the trace": any("patch_lookup" in k for k in kernels)
+        and any("i420" in k for k in kernels),
+        "color_mesh.fbx written": (profiled / "reconstruction/color_mesh.fbx").is_file(),
+        "export_fbx stage in pipeline_runtime.txt":
+            "  export_fbx: " in (profiled / "pipeline_runtime.txt").read_text(),
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"step CLI checks failed: {failed}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1037,8 +1296,9 @@ def main() -> None:
         # ICP slide (the JAX package's too): its run is checked, its
         # accuracy printed.  The furnished room is checked in full.
         _, run_checks, _, _, _ = shipped_config_path(work, quest_scene(200), "box room")
+        furnished = quest_scene(200, ROOM_CLUTTER)
         k1, furnished_run, accuracy, session, rc = shipped_config_path(
-            work, quest_scene(200, ROOM_CLUTTER), "furnished room")
+            work, furnished, "furnished room")
         failed = [f"box room: {k}" for k, ok in run_checks.items() if not ok] + [
             f"furnished room: {k}" for k, ok in dict(furnished_run, **accuracy).items() if not ok]
         if failed:
@@ -1046,6 +1306,11 @@ def main() -> None:
         kernels[0]["launches_fragment_path"] = k1
         time_pose_programs(session, rc)
         log(f"[phase 7] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        exports_and_evaluation(work, session, furnished, rc)
+        step_clis(work)
+        log(f"[phase 8] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
