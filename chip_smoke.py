@@ -64,6 +64,22 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      K1 launched, outputs equal to phase 5's card run) and
      run_full_pipeline --profile --export-fbx (a trace with the stages and
      CUDA kernel events, K1 and K2 among them)
+  9. the multi-device and batch-of-sessions paths (mq3d_tpu_torch.parallel):
+     phase 3's capture through integrate_dataset_sharded on an NCCL group
+     of one rank, replicated and partitioned, bit-equal to
+     TSDFVolume.integrate chunked the same way (K1 counted); the same
+     frames on two gloo ranks sharing cuda:0 (weights and blocks equal to
+     the single-process volume, tsdf within 1e-5, partitioned == replicated
+     bit for bit, K1 launched on each rank), with the sharded raycast at
+     1280x960 of the first 4 of phase 6's keyframe views that render alone
+     within the edge budget (within 1e-6 of the single-process render, no
+     edge overflow), pair ICP on phase 7's fragment pairs and the
+     Gauss-Newton terms of phase 6's first call, each against the unsharded
+     port; batch_run_full_pipeline as two hosts over three copies of phase
+     5's capture, one without its left depth (both print [1, 0, 1] and exit
+     1; K1 and K2 launched in the sessions); dryrun_multichip on two gloo
+     ranks, tiny and production shapes.  Two ranks share one card, so
+     these times say nothing about scaling over cards
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
 """
@@ -109,8 +125,15 @@ from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.yuv import bgr_to_gray, yuv420_to_8uc3, yuv420_to_bgr
 from mq3d_tpu_torch.pipeline.processor import run_full_pipeline
 from mq3d_tpu_torch.pipeline.stages import YUV_BATCH
-from mq3d_tpu_torch.recon import confidence, refine
-from mq3d_tpu_torch.recon.integrate import integrate_multi, tsdf_config_from_integration
+from mq3d_tpu_torch.parallel import dist as pdist
+from mq3d_tpu_torch.parallel.dryrun import dryrun_multichip
+from mq3d_tpu_torch.parallel.sharded import integrate_dataset_sharded
+from mq3d_tpu_torch.recon import color_opt, confidence, refine
+from mq3d_tpu_torch.recon.integrate import (
+    integrate_multi,
+    load_filtered_depth_stack,
+    tsdf_config_from_integration,
+)
 from mq3d_tpu_torch.recon.reconstruct import load_depth_datasets
 from mq3d_tpu_torch.scripts import (
     build_colmap_project,
@@ -701,9 +724,11 @@ def small_pose_cpu_vs_card(work: Path) -> None:
         raise AssertionError(f"CPU and card runs with steps 1-2 differ: {same}")
 
 
-def colored_path(session: Path, scene: SyntheticSceneConfig) -> None:
+def colored_path(session: Path, scene: SyntheticSceneConfig, gn_path: Path):
     """Phase 6: the colored recipe at full width on the card, on phase 3's
-    capture and volume."""
+    capture and volume.  Saves the inputs of its first Gauss-Newton call
+    to `gn_path` and returns its keyframes' views (K, T_wc, width, height)
+    for phase 9."""
     configs = colored_recipe({"interval": 10}, **PRODUCTION_INTEGRATION)
     configs.reconstruction.use_colorless_vbg_cache = True
     co = configs.reconstruction.color_optimization
@@ -714,6 +739,15 @@ def colored_path(session: Path, scene: SyntheticSceneConfig) -> None:
     torch.cuda.synchronize()
     os.environ["MQ3D_SUBSTEP_TIMING"] = "1"  # [Substep] lines: the substep seconds
     out = _Tee()
+    gn_terms = color_opt._gn_terms
+
+    def keep_first_gn(*args):
+        if not gn_path.exists():
+            names = ("verts", "K", "T", "gray", "gx", "gy", "target", "vis")
+            torch.save({k: a.cpu() for k, a in zip(names, args)}, gn_path)
+        return gn_terms(*args)
+
+    color_opt._gn_terms = keep_first_gn
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -721,6 +755,7 @@ def colored_path(session: Path, scene: SyntheticSceneConfig) -> None:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = _build.launch_counts()
+    color_opt._gn_terms = gn_terms
     del os.environ["MQ3D_SUBSTEP_TIMING"]
     printed = out.getvalue()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -769,6 +804,11 @@ def colored_path(session: Path, scene: SyntheticSceneConfig) -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"colored path checks failed: {failed}")
+    return (np.concatenate([ds.get_render_intrinsic_matrices() for ds in datasets.values()])
+            .astype(np.float32),
+            np.concatenate([ds.transforms.extrinsics_wc for ds in datasets.values()])
+            .astype(np.float32),
+            int(ds0.widths[0]), int(ds0.heights[0]))
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -1240,6 +1280,254 @@ def step_clis(work: Path) -> None:
         raise AssertionError(f"step CLI checks failed: {failed}")
 
 
+REPO = Path(__file__).resolve().parent
+RANK_RUN = "mq3d_tpu_torch.parallel.dryrun:rank_run"
+
+
+def capture_frames(session: Path, configs: PipelineConfigs):
+    """A capture's depth frames, left side then right, loaded as step 3
+    loads them: (depth, K, T_wc, valid) stacks."""
+    ic = configs.reconstruction.depth_integration
+    data_io = DataIO(session)
+    parts = []
+    for side, ds in load_depth_datasets(data_io, configs.reconstruction).items():
+        depth, valid = load_filtered_depth_stack(
+            data_io.depth, side, ds, np.arange(len(ds)), ic.use_confidence_filtered_depth,
+            ic.confidence_threshold, ic.valid_count_threshold)
+        parts.append((depth, ds.get_render_intrinsic_matrices().astype(np.float32),
+                      ds.transforms.extrinsics_wc.astype(np.float32), valid))
+    return tuple(np.concatenate(x) for x in zip(*parts))
+
+
+def sharded_world_of_one(work: Path, session: Path, configs: PipelineConfigs, smi: str):
+    """Phase 9, part 1: phase 3's capture through integrate_dataset_sharded
+    on an NCCL group of one rank, replicated and partitioned, against
+    TSDFVolume.integrate chunked the same way: bit for bit (the all-reduce
+    is the identity).  Returns the frames, the config, the chunk, the
+    reference volume's active rows and K1's launches."""
+    ic = configs.reconstruction.depth_integration
+    cfg = tsdf_config_from_integration(ic)
+    chunk = int(ic.frames_per_batch)
+    frames = capture_frames(session, configs)
+    depth, K, T, valid = frames
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = TSDFVolume(cfg, device="cuda")
+    for s in range(0, len(depth), chunk):
+        ref.integrate(depth[s:s + chunk], K[s:s + chunk], T[s:s + chunk], valid[s:s + chunk])
+    torch.cuda.synchronize()
+    secs = {"TSDFVolume.integrate": time.perf_counter() - t0}
+    a, n = ref.state, ref.n_active
+    same, k1 = {}, {}
+    group = pdist.init_group("nccl", 0, 1, f"file://{work}/nccl_store", timeout_s=600)
+    try:
+        for mode in ("replicated", "partitioned"):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = integrate_dataset_sharded(cfg, group, depth, K, T, valid,
+                                          frames_per_rank_chunk=chunk,
+                                          partition_state=mode == "partitioned", device="cuda")
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+            k1[mode] = _build.launch_counts()["patch_lookup"]
+            same[mode] = {
+                "counters": (a.n_active, a.overflow, a.dropped_active)
+                == (b.n_active, b.overflow, b.dropped_active),
+                "slot_table": torch.equal(a.slot_table, b.slot_table),
+                "block_coords": torch.equal(a.block_coords, b.block_coords),
+                "tsdf": torch.equal(a.tsdf[:n], b.tsdf[:n]),
+                "weight": torch.equal(a.weight[:n], b.weight[:n]),
+            }
+            del b
+    finally:
+        pdist.destroy_group()
+    log(f"[phase 9] NCCL world of 1, phase 3's capture ({len(depth)} frames "
+        f"{depth.shape[2]}x{depth.shape[1]}, {chunk}-frame chunks, {cfg.voxel_size * 100:g} cm "
+        f"voxels, "
+        f"{cfg.block_count} blocks; {n} active): bit-equal to TSDFVolume.integrate "
+        f"{same}; K1 launches {k1}; seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" ({smi})")
+    failed = [f"{m}: {k}" for m, d in same.items() for k, ok in d.items() if not ok]
+    if failed or min(k1.values()) == 0:
+        raise AssertionError(f"sharded world of 1 differs or launched no K1: {failed}, {k1}")
+    arrays = {"slot_table": a.slot_table.cpu().numpy(),
+              "block_coords": a.block_coords[:n].cpu().numpy(),
+              "tsdf": a.tsdf[:n].cpu().numpy(), "weight": a.weight[:n].cpu().numpy()}
+    return frames, cfg, chunk, arrays, k1
+
+
+def fragment_pairs(session: Path, rc):
+    """Every pair of phase 7's fragment clouds (furnished room) at the
+    first ICP level: voxel-downsampled sources and targets, the level's
+    correspondence distance and iteration cap."""
+    fp = rc.fragment_pose_refinement
+    rio = DataIO(session).reconstruction
+    clouds = []
+    for side in Side:
+        i = 0
+        while rio.reconstruction_path_config.get_fragment_pcd_path(side, i).exists():
+            clouds.append(icp.voxel_down_sample(rio.load_fragment_pcd(side, i).points,
+                                                fp.icp_voxel_sizes[0]).astype(np.float32))
+            i += 1
+    pairs = [(s, t) for s in range(len(clouds)) for t in range(s + 1, len(clouds))]
+    return ([clouds[s] for s, _ in pairs], [clouds[t] for _, t in pairs],
+            float(fp.max_corr_dists[0]), int(fp.max_iterations[0]))
+
+
+def sharded_two_ranks(world1, views, furnished: Path, rc, gn_path: Path, smi: str):
+    """Phase 9, part 2: two gloo ranks on cuda:0 (NCCL refuses two ranks on
+    one GPU; gloo's collectives stage through host memory): the same frames
+    and chunks as part 1, replicated and partitioned, then the sharded
+    raycast of phase 6's views at 1280x960, pair ICP on phase 7's fragment
+    pairs and the Gauss-Newton terms of phase 6's first call, each against
+    the unsharded port.  Returns K1's launches per rank."""
+    (depth, K, T, valid), cfg, chunk, ref, _ = world1
+    Kr, Tr, w, h = views
+    sources, targets, max_corr, max_iter = fragment_pairs(furnished, rc)
+    jobs = [
+        ("integrate", {"cfg": cfg, "depth": depth, "K": K, "T": T, "valid": valid,
+                       "frames_per_rank_chunk": chunk // 2}),
+        ("raycast", {"K": Kr, "T": Tr, "width": w, "height": h, "views": 4}),
+        ("icp", {"sources": sources, "targets": targets,
+                 "max_corrs": [max_corr] * len(sources), "max_iteration": max_iter}),
+        ("gn", {"path": str(gn_path)}),
+    ]
+    t0 = time.perf_counter()
+    out = pdist.spawn_ranks(RANK_RUN, 2, "gloo", "cuda", jobs, timeout_s=600)
+    wall = time.perf_counter() - t0
+    integ = [r[0] for r in out]
+    (_, ray, icp_r, gn), a = out[0], out[0][0]["arrays"]
+    n = len(ref["block_coords"])
+    tsdf_err = float(np.abs(a["tsdf"] - ref["tsdf"]).max()) if len(a["tsdf"]) == n else np.inf
+    both = np.isfinite(ray["z"]) & np.isfinite(ray["z_single"])
+    ray_err = float(np.abs(ray["z"][both] - ray["z_single"][both]).max(initial=0))
+    icp_err = float(np.abs(icp_r["sharded"]["T"] - icp_r["plain"]["T"]).max())
+    fit_err = float(np.abs(icp_r["sharded"]["fitness"] - icp_r["plain"]["fitness"]).max())
+    gn_ok = all(np.allclose(x, y, rtol=1e-6, atol=1e-8)
+                for x, y in zip(gn["sharded"], gn["plain"]))
+    k1 = [r["modes"]["replicated"]["launches"]["patch_lookup"] for r in integ]
+    checks = {
+        "same slot table and counters on both ranks": len(
+            {(r["digest_tables"], r["n_active"], r["overflow"], r["dropped_active"])
+             for r in integ}) == 1,
+        "partitioned == replicated on both ranks": all(
+            r["partitioned_equal"] and r["pad_rows_zero"] for r in integ),
+        "K1 launched on each rank": min(k1) > 0,
+        "slot table == single process": np.array_equal(a["slot_table"], ref["slot_table"]),
+        "block coords == single process": np.array_equal(a["block_coords"], ref["block_coords"]),
+        "weights == single process": np.array_equal(a["weight"], ref["weight"]),
+        "tsdf within 1e-5 of single process": tsdf_err <= 1e-5,
+        "raycast: no overflow": ray["overflow"] == 0 and ray["overflow_single"] == 0,
+        "raycast: same hits as single process": np.array_equal(
+            np.isfinite(ray["z"]), np.isfinite(ray["z_single"])),
+        "raycast within 1e-6 of single process": ray_err <= 1e-6,
+        "pair ICP transforms within 1e-5 of unsharded": icp_err <= 1e-5,
+        "pair ICP fitness within 1e-5 of unsharded": fit_err <= 1e-5,
+        "Gauss-Newton terms == unsharded (rtol 1e-6, atol 1e-8)": gn_ok,
+    }
+    log(f"[phase 9] 2 gloo ranks on cuda:0 ({wall:.1f} s wall, process start-up "
+        f"included; {smi}): integration seconds per rank "
+        + str([{m: round(v["seconds"], 2) for m, v in r["modes"].items()} for r in integ])
+        + f", K1 launches per rank {k1}, tsdf max |diff| to single process {tsdf_err:.3g}")
+    log(f"[phase 9] sharded raycast of the first {len(ray['views_kept'])} of phase 6's "
+        f"{ray['views_offered']} keyframe views that render alone without edge overflow "
+        f"({ray['views_fitting']} do; kept {ray['views_kept']}), {w}x{h}: "
+        f"{ray['seconds'] * 1e3 / len(ray['views_kept']):.2f}"
+        f" ms per frame on 2 ranks (readback and gather included), overflow "
+        f"{ray['overflow']} (single process {ray['overflow_single']}), max |dz| {ray_err:.3g}; "
+        f"pair ICP {len(sources)} pairs ({min(map(len, sources))}-{max(map(len, sources))} "
+        f"points): {icp_r['seconds']:.2f} s, max |dT| {icp_err:.3g}, max |dfitness| "
+        f"{fit_err:.3g}, fitness {np.round(icp_r['sharded']['fitness'], 4).tolist()}; "
+        f"Gauss-Newton terms of {gn['frames']} keyframes x {gn['vertices']} vertices: "
+        f"{gn['seconds']:.3f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"two-rank checks failed: {failed}")
+    return k1
+
+
+def batch_two_hosts(work: Path, smi: str) -> dict:
+    """Phase 9, part 3: batch_run_full_pipeline as two hosts (two
+    processes joined by a gloo group) over three copies of phase 5's small
+    capture, the second without its left depth: both hosts must print the
+    merged status [1, 0, 1] and exit 1.  Returns the kernels' launches of
+    the two sessions that ran."""
+    base = work / "batch"
+    names = [f"20250101_00000{i}" for i in range(3)]
+    write_synthetic_project(base / names[0], SMALL_SCENE)
+    for name in names[1:]:
+        shutil.copytree(base / names[0], base / name)
+    shutil.rmtree(base / names[1] / "left_depth")
+    cfg_path = work / "batch_colored.yml"  # JSON, which YAML reads
+    cfg_path.write_text(json.dumps(dataclasses.asdict(small_configs()), default=str))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mq3d_tpu_torch.scripts.batch_run_full_pipeline",
+         "--base-dirs", str(base), "--config", str(cfg_path), "--n-hosts", "2",
+         "--host-id", str(h), "--init-method", f"file://{work}/batch_store",
+         "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
+        for h in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    statuses = [re.findall(r"status (\[[^\]]*\])", o) for o in outs]
+    sessions = [m for o in outs for m in re.findall(
+        r"\[Info\] Session (\S+) finished in (\S+)s \(exit (\d+)\)", o)]
+    launches = {}
+    for name in (names[0], names[2]):
+        line = re.search(r"kernel_launches: (.*)", (base / name / "pipeline_runtime.txt")
+                         .read_text()).group(1)
+        launches[name] = {k: int(v) for k, v in (kv.split("=") for kv in line.split())}
+    log(f"[phase 9] batch CLI as 2 hosts over {len(names)} sessions ({wall:.1f} s wall; "
+        f"{smi}): exit codes {[p.returncode for p in procs]}, merged status per host "
+        f"{statuses}; sessions (name, seconds, exit) {sessions}; launches of the sessions "
+        f"that ran {launches}")
+    checks = {
+        "both hosts exit 1": [p.returncode for p in procs] == [1, 1],
+        "both hosts print [1, 0, 1]": statuses == [["[1, 0, 1]"], ["[1, 0, 1]"]],
+        "K1 and K2 launched in the sessions": all(
+            v["patch_lookup"] > 0 and v["i420_to_bgr"] > 0 for v in launches.values()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        tails = "\n".join(o[-3000:] for o in outs)
+        raise AssertionError(f"batch CLI checks failed: {failed}\n{tails}")
+    return launches
+
+
+def multi_rank_paths(work: Path, session: Path, configs: PipelineConfigs, views,
+                     furnished: Path, rc, gn_path: Path, smi: str) -> dict:
+    """Phase 9: the multi-device and batch-of-sessions paths on the card.
+    Two ranks on one card share it, so their times say nothing about
+    scaling over cards."""
+    t0 = time.perf_counter()
+    world1 = sharded_world_of_one(work, session, configs, smi)
+    log(f"[phase 9] part 1 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1_ranks = sharded_two_ranks(world1, views, furnished, rc, gn_path, smi)
+    log(f"[phase 9] part 2 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    batch = batch_two_hosts(work, smi)
+    log(f"[phase 9] part 3 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_multichip(2, device="cuda", backend="gloo", timeout_s=600)
+    log(f"[phase 9] dryrun_multichip(2, cuda, gloo), tiny and production shapes, done in "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return {"patch_lookup": {"nccl_world_of_1": world1[4]["replicated"],
+                             "gloo_ranks": k1_ranks,
+                             "batch_sessions": sum(v["patch_lookup"] for v in batch.values())},
+            "i420_to_bgr": {"batch_sessions": sum(v["i420_to_bgr"] for v in batch.values())}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1288,8 +1576,10 @@ def main() -> None:
         log(f"[phase 5] done in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        colored_path(session, scene)
+        gn_path = work / "gn_inputs.pt"
+        views = colored_path(session, scene, gn_path)
         log(f"[phase 6] done in {time.perf_counter() - t0:.1f} s")
+        capture = session
 
         t0 = time.perf_counter()
         # The issue's box room, whose bare parallel walls let the fragment
@@ -1311,6 +1601,12 @@ def main() -> None:
         exports_and_evaluation(work, session, furnished, rc)
         step_clis(work)
         log(f"[phase 8] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        phase9 = multi_rank_paths(work, capture, configs, views, session, rc, gn_path, smi)
+        for k in kernels[:2]:
+            k["launches_phase9"] = phase9[k["name"]]
+        log(f"[phase 9] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

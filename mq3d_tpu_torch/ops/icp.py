@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from mq3d_tpu_torch.ops.tsdf import _apply_pose, _fma, _sqrt, _to_i32
+from mq3d_tpu_torch.parallel.dist import all_gather, rank_slice, world_of
 
 # Iterations between the host's tests of whether any source still runs.
 _ACTIVE_CHECK_EVERY = 4
@@ -101,10 +102,15 @@ class GridNN:
     capacity: int
     max_occ: int
     n_target: int
+    # Set on the grids `_stack_pairs` concatenates: per-source (B, 1) offset
+    # of its grid's cells in `starts` (gmin, dims and cell are then per
+    # source too, (B, 1, 3) and (B, 1, 1)).
+    cell_base: Optional[np.ndarray] = None
 
     def to(self, device) -> "GridNN":
-        for k in ("target", "order", "starts", "gmin", "dims"):
-            setattr(self, k, torch.as_tensor(getattr(self, k), device=device))
+        for k in ("target", "order", "starts", "gmin", "dims", "cell_base"):
+            if getattr(self, k) is not None:
+                setattr(self, k, torch.as_tensor(getattr(self, k), device=device))
         return self
 
 
@@ -157,13 +163,13 @@ def _query_cells(p, gmin, dims, cell):
     clamped to 0 where the cell lies outside the grid."""
     rel = (p - gmin) / cell
     base = _to_i32(torch.floor(rel - 0.5))
-    n_cells = dims[0] * dims[1] * dims[2]
+    n_cells = dims[..., 0] * dims[..., 1] * dims[..., 2]
     for dx in range(2):
         for dy in range(2):
             for dz in range(2):
                 c = base + torch.tensor([dx, dy, dz], dtype=torch.int32, device=p.device)
                 ok = ((c >= 0) & (c < dims)).all(dim=-1)
-                lin = (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
+                lin = (c[..., 0] * dims[..., 1] + c[..., 1]) * dims[..., 2] + c[..., 2]
                 yield ok, torch.where(ok & (lin < n_cells), lin, 0)
 
 
@@ -179,6 +185,8 @@ def _nn_query(p, grid: GridNN):
     best_d2 = torch.full(px.shape, torch.inf, dtype=torch.float32, device=p.device)
     best_i = torch.full(px.shape, -1, dtype=torch.int64, device=p.device)
     for ok, lin in _query_cells(p, grid.gmin, grid.dims, _cell(grid, p)):
+        if grid.cell_base is not None:
+            lin = lin + grid.cell_base
         lin = lin.clamp(max=s_last - 1).long()
         s = torch.where(ok, starts[lin], 0)
         e = torch.where(ok, starts[lin + 1], 0)
@@ -195,7 +203,7 @@ def _nn_query(p, grid: GridNN):
 def _cell(grid, like: torch.Tensor) -> torch.Tensor:
     """The cell size as a float32 tensor on `like`'s device (a tensor
     divisor divides exactly on the card)."""
-    return torch.tensor(grid.cell, dtype=torch.float32, device=like.device)
+    return torch.as_tensor(grid.cell, dtype=torch.float32, device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -494,6 +502,98 @@ def registration_icp_batch_shared(sources, grid, max_corrs, inits=None, criteria
         out.extend(RegistrationResult(T[j], float(fitness[j]), float(rmse[j]), int(n_in[j]))
                    for j in range(len(idxs)))
     return out
+
+
+def _np(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _stack_pairs(sources, grids, lanes, n_pad: int, max_occ: int, device):
+    """Counterpart of the JAX package's _stack_pairs for the pairs `lanes`
+    (a lane past the last pair is padding: no points, the last pair's
+    grid).  Returns src (L, n_pad, 3) float32 zero-padded, n_src (L,) and
+    one GridNN over the lanes' CSR grids concatenated: each lane's target
+    ids, CSR offsets and cells are shifted to its grid's place in
+    `target`, `order` and `starts` (cell_base), and gmin, dims and cell
+    are per lane, so a lane's query reads exactly its own grid."""
+    B = len(sources)
+    gs = [grids[min(i, B - 1)] for i in lanes]
+    src = np.zeros((len(lanes), n_pad, 3), np.float32)
+    n_src = np.zeros(len(lanes), np.int64)
+    for j, i in enumerate(lanes):
+        if i < B:
+            s = np.asarray(sources[i], np.float32)
+            src[j, :len(s)] = s
+            n_src[j] = len(s)
+    target, order, starts, cell_base = [], [], [], []
+    t_off = o_off = s_off = 0
+    for g in gs:
+        tg, og, sg = _np(g.target), _np(g.order), _np(g.starts)
+        target.append(tg)
+        order.append(og + np.int32(t_off))
+        starts.append(sg + np.int32(o_off))
+        cell_base.append(s_off)
+        t_off, o_off, s_off = t_off + len(tg), o_off + len(og), s_off + len(sg)
+    grid = GridNN(
+        target=np.concatenate(target), order=np.concatenate(order),
+        starts=np.concatenate(starts),
+        gmin=np.stack([_np(g.gmin) for g in gs])[:, None, :].astype(np.float32),
+        dims=np.stack([_np(g.dims) for g in gs])[:, None, :].astype(np.int32),
+        cell=np.asarray([g.cell for g in gs], np.float32)[:, None, None],
+        capacity=max(g.capacity for g in gs), max_occ=max_occ,
+        n_target=sum(g.n_target for g in gs),
+        cell_base=np.asarray(cell_base, np.int64)[:, None])
+    return (torch.from_numpy(src).to(device), torch.from_numpy(n_src).to(device),
+            grid.to(device))
+
+
+def registration_icp_batch(sources, grids, max_corrs, inits=None, criteria=None,
+                           group=None, device=None) -> List[RegistrationResult]:
+    """Point-to-point ICP of B independent pairs, each source against its
+    own target's CSR grid (`build_grid_nn`): the JAX package's
+    registration_icp_batch, one `_icp_batch` over all lanes (the batch
+    runs the largest max_iteration of `criteria`).
+
+    With `group` (parallel/dist.py) the pairs, padded to a multiple of the
+    world size with lanes of no points that retire on the first iteration,
+    split over the ranks in contiguous blocks; each rank runs its block
+    and the results are all-gathered, so every rank returns all B.  Lanes
+    are padded to the longest source of the whole batch on every rank, so
+    on the CPU a pair's results do not depend on the split; the card's
+    reductions regroup with the batch's size, and poses agree to ~1e-6
+    there.  The device is `device`, else the first grid's, else the card."""
+    B = len(sources)
+    if B == 0:
+        return []
+    if not all(isinstance(g, GridNN) for g in grids):
+        raise TypeError("registration_icp_batch takes CSR grids (build_grid_nn)")
+    inits = inits if inits is not None else [None] * B
+    criteria = criteria if criteria is not None else [ICPConvergenceCriteria()] * B
+    dev = _grid_device(grids[0], device)
+    world = world_of(group)
+    B_pad = -(-B // world) * world
+    lanes = list(range(B_pad))[rank_slice(B_pad, group)]
+    real = [min(i, B - 1) for i in lanes]
+    src, n_src, grid = _stack_pairs(sources, grids, lanes,
+                                    max(max(len(s) for s in sources), 1),
+                                    max(g.max_occ for g in grids), dev)
+    T0 = torch.from_numpy(np.stack([
+        np.eye(4) if inits[i] is None else np.asarray(inits[i], np.float64)
+        for i in real])).to(dev)
+
+    def per_lane(fn, dtype):
+        return torch.as_tensor([fn(i) for i in real], dtype=dtype, device=dev)
+
+    out = _icp_batch(
+        src, n_src, grid, per_lane(lambda i: max_corrs[i], torch.float32), T0,
+        per_lane(lambda i: criteria[i].relative_fitness, torch.float32),
+        per_lane(lambda i: criteria[i].relative_rmse, torch.float32),
+        max(int(c.max_iteration) for c in criteria))
+    if group is not None:
+        out = [all_gather(x, group) for x in out]
+    T, fitness, rmse, n_in = (x.cpu().numpy() for x in out)
+    return [RegistrationResult(T[i], float(fitness[i]), float(rmse[i]), int(n_in[i]))
+            for i in range(B)]
 
 
 def registration_icp(source: np.ndarray, target: np.ndarray,

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import math
 import weakref
+from typing import Optional
 
 import numpy as np
 import torch
@@ -567,20 +568,22 @@ _prep_cache = _ScenePrep()
 
 
 def _render_frames_device(volume: TSDFVolume, intrinsics: np.ndarray,
-                          extrinsics_wc: np.ndarray, width: int, height: int):
+                          extrinsics_wc: np.ndarray, width: int, height: int,
+                          edge_cap: Optional[int] = None):
     """Queue one batch render on the volume's device; returns device
     tensors ((F, H, W) z-depth, overflow) without waiting for them.
     intrinsics (F, 3, 3) with cx already mirror-flipped, extrinsics_wc
-    (F, 4, 4)."""
+    (F, 4, 4).  `edge_cap` bounds the edge pixels re-marched (default: 1/16
+    of the batch's pixels, at least 4096); overflowed pixels keep the dense
+    1/z-upsampled value."""
     cfg = volume.cfg
     dev = volume.device
     t_max = cfg.depth_max * 1.5
     slot_dist, ext, aabb, n_bucket = _prep_cache.get(volume)
     T_cw = np.linalg.inv(np.asarray(extrinsics_wc, np.float64)).astype(np.float32)
     F = intrinsics.shape[0]
-    # Edge capacity: 1/16 of the pixels bounds the march width; overflowed
-    # pixels keep the dense 1/z-upsampled value.
-    edge_cap = max(F * width * height // 16, 4096)
+    if edge_cap is None:
+        edge_cap = max(F * width * height // 16, 4096)
     return _render_frames(
         cfg, slot_dist, ext, aabb, n_bucket,
         torch.from_numpy(np.asarray(intrinsics, np.float32)).to(dev),

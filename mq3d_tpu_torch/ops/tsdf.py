@@ -568,6 +568,31 @@ def integrate_chunk(cfg: TSDFConfig, state: TSDFState, depth, intrinsics,
     return state
 
 
+def integrate_windows(cfg: TSDFConfig, state: TSDFState, one_pass) -> None:
+    """Run `one_pass(block_skip)` over a chunk's capacity windows until
+    every touched block is integrated: when a pass drops blocks past
+    cfg.chunk_active_capacity, the next pass takes the next window.  The
+    windows are disjoint block sets, so the result is bit-identical to one
+    unbounded pass and no observations are dropped."""
+    d_before = state.dropped_active
+    one_pass(0)
+    o_first = None
+    d_prev, skip = d_before, 0
+    while state.dropped_active != d_prev:
+        if o_first is None:
+            # Pool overflow after the FIRST pass: retry passes see the
+            # same still-unallocatable blocks and would re-add it.
+            o_first = state.overflow
+        d_prev = state.dropped_active
+        skip += cfg.chunk_active_capacity
+        one_pass(skip)
+    if d_prev != d_before:
+        # Every window was drained: the per-pass remainders were
+        # bookkeeping, not lost observations.
+        state.dropped_active = d_before
+        state.overflow = o_first
+
+
 def integrate_chunks(cfg: TSDFConfig, state: TSDFState, depth, intrinsics,
                      extrinsics_wc, frame_valid) -> TSDFState:
     """S chunks of C frames ((S, C, H, W) depth), one after another;
@@ -950,24 +975,8 @@ class TSDFVolume:
         if not auto_split:
             integrate_chunk(self.cfg, st, *args, 0, T_cw)
             return self
-
-        d_before = st.dropped_active
-        integrate_chunk(self.cfg, st, *args, 0, T_cw)
-        o_first = None
-        d_prev, skip = d_before, 0
-        while st.dropped_active != d_prev:
-            if o_first is None:
-                # Pool overflow after the FIRST pass: retry passes see the
-                # same still-unallocatable blocks and would re-add it.
-                o_first = st.overflow
-            d_prev = st.dropped_active
-            skip += self.cfg.chunk_active_capacity
-            integrate_chunk(self.cfg, st, *args, skip, T_cw)
-        if d_prev != d_before:
-            # Every window was drained: the per-pass remainders were
-            # bookkeeping, not lost observations.
-            st.dropped_active = d_before
-            st.overflow = o_first
+        integrate_windows(self.cfg, st,
+                          lambda skip: integrate_chunk(self.cfg, st, *args, skip, T_cw))
         return self
 
     # -- persistence ---------------------------------------------------------------

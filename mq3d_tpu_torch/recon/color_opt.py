@@ -20,6 +20,7 @@ does.  The 6x6 solves and pose updates run on the host in float64.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, Tuple
 
 import numpy as np
@@ -36,6 +37,7 @@ from mq3d_tpu_torch.models.transforms import CoordinateSystem, Transforms
 from mq3d_tpu_torch.ops.mesh_filter import filter_mesh_components
 from mq3d_tpu_torch.ops.raycast import raycast_depth
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
+from mq3d_tpu_torch.parallel.dist import all_gather, rank_slice, world_of
 from mq3d_tpu_torch.utils.log import substep
 
 VIS_DEPTH_THRESHOLD = 0.03  # meters; visibility depth-consistency margin
@@ -128,6 +130,20 @@ def _gn_terms(verts, K, T_wc, gray, gx, gy, target_c, visible):
     return H, b, (rm * rm).sum(dim=1), ok.sum(dim=1)
 
 
+def _gn_terms_sharded(group, verts, K, T_wc, gray, gx, gy, target_c, visible):
+    """`_gn_terms` with the frame axis split over a process group
+    (parallel/dist.py), the JAX package's `_sharded_gn`: the frames pad to
+    a multiple of the world size by repeating the last (its `pad_ids`),
+    each rank computes its contiguous block, and the all-gathered terms of
+    the real frames return on every rank in frame order."""
+    F = K.shape[0]
+    n = F + (-F % world_of(group))
+    ids = torch.arange(n, device=K.device).clamp(max=F - 1)[rank_slice(n, group)]
+    terms = _gn_terms(verts, K[ids], T_wc[ids], gray[ids], gx[ids], gy[ids], target_c,
+                      visible[ids])
+    return tuple(all_gather(x, group)[:F] for x in terms)
+
+
 def _sample_rgb(verts, K, T_wc, rgb, visible):
     u, v, z, _ = _project(verts, K, T_wc)
     val, inb = _sample_bilinear(rgb, u, v)
@@ -172,13 +188,17 @@ def _load_keyframes(vbg: TSDFVolume, data_io: DataIO, config: ColorOptimizationC
 
 
 def optimize_color_pose(vbg: TSDFVolume, data_io: DataIO, config: ColorOptimizationConfig,
-                        mesh: TriangleMesh) -> Tuple[TriangleMesh, Dict[Side, CameraDataset]]:
+                        mesh: TriangleMesh, group=None
+                        ) -> Tuple[TriangleMesh, Dict[Side, CameraDataset]]:
     """The reference's optimize_color_pose on `mesh`, the volume's mesh as
     step 4 extracts and filters it (config.weight_threshold and
     config.min_triangle_count; the JAX build extracts and filters it again
     here, with the same result).  Returns the colored, component-filtered
     mesh and the pose-refined keyframe color datasets per side.  Runs on
-    the volume's device; `mesh` is not modified."""
+    the volume's device; `mesh` is not modified.  With a process group
+    (`group`, the JAX build's `mesh_devices`), every rank runs the whole
+    optimisation and the Gauss-Newton terms of each chunk of keyframes
+    split over the ranks (`_gn_terms_sharded`)."""
     dev = vbg.device
     verts = torch.from_numpy(np.asarray(mesh.vertices, np.float32)).to(dev)
     with substep("color_opt.keyframes"):
@@ -219,6 +239,7 @@ def optimize_color_pose(vbg: TSDFVolume, data_io: DataIO, config: ColorOptimizat
         return acc / torch.clamp(cnt, min=1.0)
 
     # --- alternating optimization --------------------------------------------
+    gn = _gn_terms if group is None else partial(_gn_terms_sharded, group)
     residuals = []
     with substep("color_opt.gauss_newton"):
         prev_res = np.inf
@@ -226,7 +247,7 @@ def optimize_color_pose(vbg: TSDFVolume, data_io: DataIO, config: ColorOptimizat
             target_c = vertex_targets()
             total_res = 0.0
             for ids, st in zip(chunks, static):
-                Hs, bs, ress, n_oks = (x.cpu().numpy() for x in _gn_terms(
+                Hs, bs, ress, n_oks = (x.cpu().numpy() for x in gn(
                     verts, st["K"], poses(ids), st["gray"], st["gx"], st["gy"], target_c,
                     st["vis"]))
                 for j, fi in enumerate(ids):

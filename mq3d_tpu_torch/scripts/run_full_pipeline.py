@@ -13,6 +13,9 @@ pipeline_runtime.txt summary in the session directory.
 --profile DIR wraps the run in torch.profiler (CPU activity, and CUDA on
 the card) and writes DIR/pipeline_trace.json, a Chrome trace in which the
 stage and substep ranges of utils/log.py appear by name.
+
+pipeline_runtime.txt also counts the hand-written kernels' launches of the
+run (kernel_launches: patch_lookup=... i420_to_bgr=... gather=...).
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ def _profiler(trace_dir: Optional[Path], device: str):
 
 def main(argv=None):
     from mq3d_tpu_torch.dataio.data_io import DataIO
+    from mq3d_tpu_torch.kernels._build import launch_counts
     from mq3d_tpu_torch.models.side import Side
     from mq3d_tpu_torch.pipeline.processor import run_full_pipeline
 
@@ -122,6 +126,7 @@ def main(argv=None):
         f"adjusted_runtime_seconds: {adjusted:.1f}\n"
         f"captures: {captures}\n"
         f"seconds_per_capture: {adjusted / captures:.3f}\n"
+        "kernel_launches: " + " ".join(f"{k}={v}" for k, v in launch_counts().items()) + "\n"
         "per_stage_seconds:\n"
         + "".join(f"  {name}: {dt:.1f}\n" for name, dt in stages.items())
     )

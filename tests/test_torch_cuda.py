@@ -172,3 +172,65 @@ def test_empty_inputs_launch_nothing(cuda_device):
     table = torch.zeros(16, dtype=torch.float32, device=cuda_device)
     assert gather(table, torch.zeros(0, dtype=torch.int32, device=cuda_device)).shape == (0,)
     assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}
+
+
+# The sharded integration on the card (parallel/sharded.py).  Frames of
+# 128x96 px, so pairs fetch through K1 (the patch is 64 px).  Two gloo
+# ranks share cuda:0 (NCCL refuses two ranks on one GPU); tolerances as on
+# the CPU (tests/test_torch_parallel.py): weights exact, tsdf within 1e-5.
+
+def _sharded_jobs(frames_per_rank_chunk):
+    from mq3d_tpu_torch.ops.tsdf import TSDFConfig
+    from mq3d_tpu_torch.parallel.dryrun import tiny_frames
+
+    cfg = TSDFConfig(voxel_size=0.05, block_resolution=16, block_count=1024, grid_dim=16,
+                     depth_max=4.0, trunc_voxel_multiplier=4.0, chunk_active_capacity=1024,
+                     integrate_tile=128)
+    depth, K, T, valid = tiny_frames(16, h=96, w=128)
+    return cfg, (depth, K, T, valid), [("integrate", {
+        "cfg": cfg, "depth": depth, "K": K, "T": T, "valid": valid,
+        "frames_per_rank_chunk": frames_per_rank_chunk})]
+
+
+def _volume(arrays):
+    k = np.lexsort(arrays["block_coords"].T)
+    return arrays["block_coords"][k], arrays["tsdf"][k], arrays["weight"][k]
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_the_cpu_world(cuda_device):
+    from mq3d_tpu_torch.parallel.dist import spawn_ranks
+
+    _build.library()  # built once, before the ranks load it
+    _, _, jobs = _sharded_jobs(4)
+    run = "mq3d_tpu_torch.parallel.dryrun:rank_run"
+    card = spawn_ranks(run, 2, "gloo", "cuda", jobs, timeout_s=600)
+    cpu = spawn_ranks(run, 2, "gloo", "cpu", jobs, timeout_s=600)
+    assert len({r[0]["digest_tables"] for r in card}) == 1
+    assert all(r[0]["partitioned_equal"] and r[0]["pad_rows_zero"] for r in card)
+    for r in card:
+        assert r[0]["modes"]["replicated"]["launches"]["patch_lookup"] > 0
+    (cc, ct, cw), (pc, pt, pw) = _volume(card[0][0]["arrays"]), _volume(cpu[0][0]["arrays"])
+    np.testing.assert_array_equal(cc, pc)
+    np.testing.assert_array_equal(cw, pw)
+    np.testing.assert_allclose(ct, pt, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_equals_tsdf_volume_integrate(cuda_device):
+    from mq3d_tpu_torch.ops.tsdf import TSDFVolume
+    from mq3d_tpu_torch.parallel.dist import spawn_ranks
+
+    _build.library()
+    cfg, (depth, K, T, valid), jobs = _sharded_jobs(8)
+    (res,), = spawn_ranks("mq3d_tpu_torch.parallel.dryrun:rank_run", 1, "nccl", "cuda", jobs,
+                          timeout_s=600)
+    vol = TSDFVolume(cfg, device=cuda_device)
+    for s in (0, 8):
+        vol.integrate(depth[s:s + 8], K[s:s + 8], T[s:s + 8], valid[s:s + 8])
+    n = vol.n_active
+    a = res["arrays"]
+    assert res["n_active"] == n and res["modes"]["replicated"]["launches"]["patch_lookup"] > 0
+    assert np.array_equal(a["slot_table"], vol.state.slot_table.cpu().numpy())
+    for k in ("block_coords", "tsdf", "weight"):
+        assert np.array_equal(a[k], getattr(vol.state, k)[:n].cpu().numpy()), k
