@@ -5,7 +5,9 @@
 Phases, one line each (flushed, so a cut run shows where it stopped):
   0. environment: the card's name and power limit; no CUDA -> exit non-zero
   1. build: mq3d_tpu_torch/csrc/*.cu, one nvcc per source in parallel and
-     one link, with ptxas's registers, shared memory and spills
+     one link, with ptxas's registers, shared memory and spills; and the
+     native IO runtime (csrc/mqio.cpp, g++ -lz), which the main path's
+     depth-stack reads and PNG writes go through from phase 3 on
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (and at shapes that take the kernels'
      scalar paths), with times and byte bounds; K3 in both out-of-range
@@ -80,12 +82,27 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      1; K1 and K2 launched in the sessions); dryrun_multichip on two gloo
      ranks, tiny and production shapes.  Two ranks share one card, so
      these times say nothing about scaling over cards
+  10. the native IO runtime and the host tools on phase 7's furnished room:
+     phase 1's build of the runtime on this host (g++ and zlib versions,
+     thread count, build seconds); read_raw_batch against the per-file read
+     on the side's raw depth files plus a missing, a short and a long file;
+     write_png_batch on the side's 200 colour frames against encode_png
+     (equal pixels, and equal bytes where both link one zlib) and against
+     step 0's own files; destride_plane against the numpy one at Quest
+     scale; median times of the PNG batch (native, encode_png on one
+     thread, and encode_png on the 8-thread pool step 0 used before the
+     runtime), the raw read and the de-striding; then visualize_camera_trajectories,
+     find_optimal_timestamp_offset, rename_timestamps on a copy and
+     analyze_fog_no_fog_mapping with their outputs checked, and the tools
+     that read CSVs with pandas when this machine has pandas
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
 """
 
 import contextlib
+import csv
 import dataclasses
+import importlib.util
 import io
 import json
 import os
@@ -136,13 +153,20 @@ from mq3d_tpu_torch.recon.integrate import (
 )
 from mq3d_tpu_torch.recon.reconstruct import load_depth_datasets
 from mq3d_tpu_torch.scripts import (
+    analyze_fog_no_fog_mapping,
+    analyze_recording_lengths,
     build_colmap_project,
     compare_mesh_to_ground_truth,
+    compute_hmd_motion_stats,
     convert_depth_to_linear_map,
     convert_yuv_to_rgb,
     downsample_fbx_mesh,
     evaluate_mesh_quality,
+    find_optimal_timestamp_offset,
     reconstruct_scene,
+    rename_timestamps,
+    trim_recordings,
+    visualize_camera_trajectories,
 )
 from mq3d_tpu_torch.scripts import run_full_pipeline as pipeline_cli
 from mq3d_tpu_torch.testing.synthetic import (
@@ -153,8 +177,11 @@ from mq3d_tpu_torch.testing.synthetic import (
     write_synthetic_project,
 )
 from mq3d_tpu_torch.tools import probe_gather
+from mq3d_tpu_torch.ops.yuv import destride_plane
+from mq3d_tpu_torch.utils import native
 from mq3d_tpu_torch.utils.devtime import bound_ms as bound
 from mq3d_tpu_torch.utils.devtime import floor_ms, time_ms
+from mq3d_tpu_torch.utils.png import encode_png, imread_bgr, write_png_batch_plain
 
 SEED = 0
 
@@ -812,9 +839,10 @@ def colored_path(session: Path, scene: SyntheticSceneConfig, gn_path: Path):
 
 
 def host_ms(fn, reps: int = 5) -> float:
-    """Median wall time of fn() in ms, synchronized: for the device
-    programs of steps 1-2, which launch many small kernels and read
-    results back, so host gaps are part of their cost."""
+    """Median wall time of fn() in ms after one warm call, synchronized:
+    for the device programs of steps 1-2, which launch many small kernels
+    and read results back, so host gaps are part of their cost, and for
+    the host IO of phase 10."""
     fn()
     times = []
     for _ in range(reps):
@@ -1528,6 +1556,180 @@ def multi_rank_paths(work: Path, session: Path, configs: PipelineConfigs, views,
             "i420_to_bgr": {"batch_sessions": sum(v["i420_to_bgr"] for v in batch.values())}}
 
 
+def _printed(fn, argv) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(argv)
+    return out.getvalue()
+
+
+def native_checks(work: Path, session: Path, info: dict) -> None:
+    """Phase 10, first part: the runtime against its plain versions on
+    phase 7's furnished-room capture, and both timed."""
+    io_ = DataIO(session)
+    side = Side.LEFT
+    ds = io_.depth.load_depth_dataset(side)
+    pc = io_.depth.depth_path_config
+    paths = [pc.get_depth_map_path(side, int(t)) for t in ds.timestamps]
+    frame = int(ds.widths[0]) * int(ds.heights[0]) * 4
+    cases = work / "raw_cases"
+    cases.mkdir()
+    (cases / "short.raw").write_bytes(paths[0].read_bytes()[:frame // 3])
+    (cases / "long.raw").write_bytes(paths[1].read_bytes() + paths[2].read_bytes()[:4096])
+    all_paths = paths + [cases / "missing.raw", cases / "short.raw", cases / "long.raw"]
+    buf, ok = native.read_raw_batch(all_paths, frame)
+    plain_buf, plain_ok = native.read_raw_batch_plain(all_paths, frame)
+    raw_equal = bool(np.array_equal(buf, plain_buf) and np.array_equal(ok, plain_ok))
+    if not (raw_equal and ok[:len(paths)].all() and ok[len(paths):].tolist() == [False, False, True]
+            and np.array_equal(buf[-1], buf[1])):
+        raise AssertionError(f"read_raw_batch != the per-file read (ok {ok[-3:].tolist()})")
+    read_ms = host_ms(lambda: native.read_raw_batch(paths, frame), reps=3)
+    read_plain_ms = host_ms(lambda: native.read_raw_batch_plain(paths, frame), reps=3)
+    log(f"[phase 10] read_raw_batch of {len(paths)} raw depth files ({frame} bytes each) + a "
+        f"missing, a short and a long file: equal to the per-file read (ok of the three "
+        f"{ok[-3:].tolist()}); {read_ms:.2f} ms native, {read_plain_ms:.2f} ms plain "
+        f"(median of 3, files in the page cache)")
+
+    rgb_dir = io_.color.image_path_config.get_rgb_dir(side)
+    rgb = sorted(rgb_dir.glob("*.png"), key=lambda q: int(q.stem))
+    bgrs = np.stack([imread_bgr(q) for q in rgb])
+    out_native, out_plain = work / "png_native", work / "png_plain"
+    out_native.mkdir()
+    out_plain.mkdir()
+    native_paths = [out_native / q.name for q in rgb]
+    plain_paths = [out_plain / q.name for q in rgb]
+    written = native.write_png_batch(native_paths, bgrs)
+    write_png_batch_plain(plain_paths, bgrs)
+    same_zlib = info["zlib_runtime"] == info["zlib_python"]
+    bytes_equal = all(a.read_bytes() == b.read_bytes() for a, b in zip(native_paths, plain_paths))
+    step0_equal = all(a.read_bytes() == b.read_bytes() for a, b in zip(native_paths, rgb))
+    step = 1 if not same_zlib else 10
+    pixels_equal = all(np.array_equal(imread_bgr(native_paths[i]), bgrs[i])
+                       and np.array_equal(imread_bgr(plain_paths[i]), bgrs[i])
+                       for i in range(0, len(rgb), step))
+    if not (written.all() and pixels_equal and step0_equal and (bytes_equal or not same_zlib)):
+        raise AssertionError(f"write_png_batch: written {written.all()}, pixels {pixels_equal}, "
+                             f"bytes {bytes_equal}, step 0's files {step0_equal}")
+    png_ms = host_ms(lambda: native.write_png_batch(native_paths, bgrs), reps=3)
+    png_plain_ms = host_ms(lambda: write_png_batch_plain(plain_paths, bgrs), reps=3)
+    png_pool_ms = host_ms(lambda: pool_write_png_batch(plain_paths, bgrs), reps=3)
+    log(f"[phase 10] write_png_batch of {len(rgb)} {bgrs.shape[2]}x{bgrs.shape[1]} BGR frames "
+        f"({bgrs.nbytes / 1e6:.1f} MB): pixels equal (every {step}th decoded), bytes equal to "
+        f"encode_png's {bytes_equal} (zlib {info['zlib_runtime']} and Python's "
+        f"{info['zlib_python']}) and to step 0's files {step0_equal}; {png_ms:.1f} ms native on "
+        f"{info['threads']} threads, {png_plain_ms:.1f} ms plain (encode_png, one thread), "
+        f"{png_pool_ms:.1f} ms encode_png on step 0's earlier pool of "
+        f"{min(len(rgb), os.cpu_count() or 1, 8)} threads (median of 3 after a warm call)")
+
+    w, h, rs = 1280, 960, 1344
+    y_size = rs * h
+    data = np.random.default_rng(SEED).integers(0, 256, y_size + rs * (h // 2 - 1) + w - 1,
+                                                np.uint8).tobytes()
+    planes = [(0, w, h, rs, 1), (y_size, w // 2, h // 2, rs, 2), (y_size + 1, w // 2, h // 2, rs, 2)]
+    for args in planes:
+        if not np.array_equal(native.destride_plane(data, *args), destride_plane(data, *args)):
+            raise AssertionError(f"destride_plane {args}: native != numpy")
+    ds_ms = host_ms(lambda: [native.destride_plane(data, *a) for a in planes], reps=5)
+    ds_plain_ms = host_ms(lambda: [destride_plane(data, *a) for a in planes], reps=5)
+    log(f"[phase 10] destride_plane of a {w}x{h} YUV_420_888 buffer (row stride {rs}, NV12 "
+        f"chroma, short last row): Y, U and V equal to the numpy version; {ds_ms:.3f} ms "
+        f"native, {ds_plain_ms:.3f} ms numpy (median of 5)")
+
+
+def pool_write_png_batch(paths, imgs) -> None:
+    """Step 0's PNG batch write before the native runtime: encode_png per
+    frame on a pool of up to 8 threads (zlib releases the interpreter
+    lock).  Timed beside the runtime; used nowhere in the port."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=min(len(paths), os.cpu_count() or 1, 8)) as pool:
+        list(pool.map(lambda p, img: Path(p).write_bytes(encode_png(img)), paths, imgs))
+
+
+def host_tools(work: Path, session: Path) -> None:
+    """Phase 10, second part: the host tools on phase 7's furnished room."""
+    io_ = DataIO(session)
+    datasets = [io_.depth.load_depth_dataset(s) for s in Side] + [
+        io_.color.load_color_dataset(s) for s in Side]
+    ply_path = work / "trajectories.ply"
+    _printed(visualize_camera_trajectories.main, ["--project_dir", str(session),
+                                                  "--output", str(ply_path)])
+    cloud = read_ply(ply_path)
+    want = 5 * sum(-(-len(d) // 10) for d in datasets)
+    colours = {tuple(c) for c in np.asarray(cloud.colors)}
+    if not (len(cloud.points) == want and np.isfinite(cloud.points).all() and len(colours) == 4):
+        raise AssertionError(f"trajectories.ply: {len(cloud.points)} points (want {want}), "
+                             f"{len(colours)} colours")
+
+    def offset(project: Path) -> dict:
+        return json.loads(_printed(find_optimal_timestamp_offset.main, [
+            "--project_dir", str(project), "--target", "left_camera_rgb",
+            "--tolerance_ms", "2"]))
+
+    found = offset(session)
+    copy = work / "renamed_copy"
+    for name in ("left_depth", "left_camera_rgb"):
+        shutil.copytree(session / name, copy / name)
+    printed = _printed(rename_timestamps.main, ["--project_dir", str(copy), "--offset_ms", "7",
+                                                "--modalities", "left_depth"])
+    src = sorted(session.joinpath("left_depth").iterdir(), key=lambda q: int(q.stem))
+    renamed_ok = all(copy.joinpath("left_depth", f"{int(q.stem) + 7}.raw").read_bytes()
+                     == q.read_bytes() for q in src)
+    shifted = offset(copy)
+    if not (found == {"best_offset_ms": 0.0, "best_overlap": 1.0} and renamed_ok
+            and shifted == {"best_offset_ms": -5.0, "best_overlap": 1.0}):
+        raise AssertionError(f"timestamp tools: offset {found}, renamed {renamed_ok}, "
+                             f"after the shift {shifted}")
+
+    study = work / "study"
+    (study / "P01").mkdir(parents=True)
+    (study / "P01" / "room_fog").symlink_to(session)
+    (study / "P01" / "room_nofog").symlink_to(copy)
+    _printed(analyze_fog_no_fog_mapping.main, ["--base_dir", str(study)])
+    rows = (study / "master_fog_no_fog_report.csv").read_text().splitlines()
+    if not (len(rows) == 2 and f"{study / 'P01' / 'room_fog'}" in rows[1]):
+        raise AssertionError(f"master_fog_no_fog_report.csv: {rows}")
+    log(f"[phase 10] visualize_camera_trajectories: {len(cloud.points)} frustum vertices of 4 "
+        f"trajectories; find_optimal_timestamp_offset {found}; rename_timestamps {printed.strip()!r}"
+        f" on a copy, every file moved with its bytes, and the offset then found {shifted}; "
+        f"analyze_fog_no_fog_mapping: 1 pair")
+
+    if importlib.util.find_spec("pandas") is None:
+        log("[phase 10] no pandas here: the motion-stats CLIs, analyze_recording_lengths and "
+            "trim_recordings run only in the CPU tests (tests/test_torch_tools.py)")
+        return
+    lengths = _printed(analyze_recording_lengths.main, [str(session)])
+    stats = json.loads(_printed(compute_hmd_motion_stats.main, [
+        str(session), "--summary-csv", str(work / "hmd_all_summary.csv")]).split("\n[Info]")[0])
+    duration = stats[str(session)]["duration_s"]
+    with open(session / "hmd_poses.csv", newline="") as f:
+        t_ms = [float(r["unix_time"]) for r in csv.DictReader(f)]
+    keep = len(src) // 4
+    trimmed = _printed(trim_recordings.main, [str(copy), "--max-frames", str(keep)])
+    kept = len(list((copy / "left_depth").iterdir()))
+    if not (f"frames={len(src):6d}" in lengths and kept == keep
+            and duration == max(t_ms) / 1000.0 - min(t_ms) / 1000.0):
+        raise AssertionError(f"pandas tools: duration {duration}, kept {kept}")
+    log(f"[phase 10] pandas present: analyze_recording_lengths, compute_hmd_motion_stats "
+        f"(duration {duration:.3f} s over {stats[str(session)]['n_samples']} poses) and "
+        f"trim_recordings --max-frames {keep} "
+        f"({trimmed.strip().replace(str(copy), 'copy')}) ran; the CPU tests hold every tool "
+        f"against the JAX package")
+
+
+def native_runtime_and_tools(work: Path, session: Path) -> None:
+    """Phase 10: the native IO runtime on this host (built in phase 1),
+    then the host tools."""
+    info = native.runtime_info()
+    log(f"[phase 10] native IO runtime {native._lib_path().name}, built in phase 1 from "
+        f"{native.SOURCE.name} in {native.last_build_seconds():.2f} s: {info['gxx']}; zlib "
+        f"{info['zlib_compiled']} "
+        f"compiled, {info['zlib_runtime']} loaded, Python's {info['zlib_python']}; "
+        f"{info['threads']} threads for n_threads=0")
+    native_checks(work, session, info)
+    host_tools(work, session)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1547,6 +1749,10 @@ def main() -> None:
         f"{_build.last_build_seconds():.1f} s, phase {time.perf_counter() - t0:.1f} s")
     for line in _build.last_build_report().splitlines():
         log(f"[phase 1] {line}")
+    native.build(force=True)
+    native.library()
+    log(f"[phase 1] built the native IO runtime {native._lib_path().name} from "
+        f"{native.SOURCE.name} with g++: {native.last_build_seconds():.2f} s")
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
@@ -1607,6 +1813,10 @@ def main() -> None:
         for k in kernels[:2]:
             k["launches_phase9"] = phase9[k["name"]]
         log(f"[phase 9] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        native_runtime_and_tools(work, session)
+        log(f"[phase 10] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -22,6 +22,7 @@ from mq3d_tpu_torch.models.datasets import DepthDataset
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.models.transforms import CoordinateSystem, Transforms
 from mq3d_tpu_torch.ops.depth import convert_depth_to_linear, is_depth_map_valid
+from mq3d_tpu_torch.utils.native import read_raw_batch
 from mq3d_tpu_torch.utils.png import imwrite
 
 
@@ -79,8 +80,9 @@ class DepthDataIO:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Batched loader: (N, H, W) float32 linear-depth stack + validity mask.
 
-        Raw files are read with numpy.fromfile, then validated and
-        NDC-linearized as stacked array ops.  Invalid/missing
+        Raw files are read in one threaded pass of the native runtime
+        (utils/native.py), then validated and NDC-linearized as stacked
+        array ops; a file longer than a frame gives its first frame.  Invalid/missing
         frames become all-zero maps with valid=False; zero depth is already
         "no data" downstream.  Requires uniform frame size within the
         requested range (true for QRC captures).
@@ -112,15 +114,8 @@ class DepthDataIO:
             self.depth_path_config.get_depth_map_path(side, int(dataset.timestamps[i]))
             for i in indices
         ]
-        raw = np.zeros((n, h, w), "<f4")
-        ok = np.zeros(n, bool)
-        for i, p in enumerate(paths):
-            if not p.exists():
-                continue
-            buf = np.fromfile(p, dtype="<f4")
-            if buf.size == h * w:
-                raw[i] = buf.reshape(h, w)
-                ok[i] = True
+        buf, ok = read_raw_batch(paths, h * w * 4)
+        raw = buf.view("<f4").reshape(n, h, w)
 
         # Vectorized sensor-dropout validity (depth_data_io.py:80-85).
         any_nonzero = (raw != 0).any(axis=(1, 2))

@@ -12,8 +12,6 @@ Android camera pose -> HMD frame requires a z-flip on translation, conjugated
 from __future__ import annotations
 
 import json
-import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -30,6 +28,7 @@ from mq3d_tpu_torch.models.camera import (
 from mq3d_tpu_torch.models.datasets import CameraDataset
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.models.transforms import CoordinateSystem, Transforms
+from mq3d_tpu_torch.utils.native import write_png_batch
 from mq3d_tpu_torch.utils.png import imread_bgr, imwrite
 
 
@@ -90,20 +89,17 @@ class ImageDataIO:
 
     def save_bgr_batch(self, bgrs: np.ndarray, side: Side,
                        timestamps) -> int:
-        """PNG-encode a (N, H, W, 3) BGR batch on a thread pool (the YUV
-        stage's write path; zlib releases the interpreter lock).  Returns
-        the number written."""
+        """PNG-encode a (N, H, W, 3) BGR batch on the native runtime's
+        threads (the YUV stage's write path).  Returns the number written;
+        raises when a file could not be written."""
         paths = [self.image_path_config.get_rgb_file_path(side, int(ts))
                  for ts in timestamps]
         if not paths:
             return 0
         paths[0].parent.mkdir(parents=True, exist_ok=True)
-        workers = min(len(paths), os.cpu_count() or 1, 8)
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            futures = [pool.submit(imwrite, p, np.ascontiguousarray(b))
-                       for p, b in zip(paths, bgrs)]
-            for fut in futures:
-                fut.result()
+        ok = write_png_batch(paths, np.ascontiguousarray(bgrs))
+        if not ok.all():
+            raise OSError(f"failed to write {[str(p) for p, k in zip(paths, ok) if not k]}")
         return len(paths)
 
     # -- metadata -----------------------------------------------------------------

@@ -17,6 +17,13 @@ Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrapper raises when it is not 0.  Every pointer and the stream are passed
 as ``ctypes.c_void_p``.
 
+The steps shared with the native IO runtime (``utils/native.py``, built
+with g++) live here too: the hash that names a library
+(``source_hash``), the compile to a name of this process and thread moved
+into place with ``os.replace`` (``build_into``), so builds that start
+together in several processes each load a whole library, and the typed
+load cached once per process (``load_typed``, ``LazyLibrary``).
+
 Launch counts: each wrapper calls ``count_launch(name)`` where it launches
 its kernel and nowhere else, so a run can show that its main path went
 through the kernels (``reset_launch_counts`` / ``launch_counts``).
@@ -32,7 +39,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -42,20 +49,19 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# C entry points: name -> argtypes.  P = pointer, I = int.
+# C entry points: name -> (restype, argtypes); each returns a cudaError_t.
+# P = pointer, I = int.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # (patch, vi, ui, out, TP, PS, V, stream)
-    "mq3d_patch_lookup": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mq3d_patch_lookup": (_I, (_P, _P, _P, _P, _I, _I, _I, _P)),
     # (y, u, v, out, N, H, W, stream)
-    "mq3d_i420_to_bgr": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mq3d_i420_to_bgr": (_I, (_P, _P, _P, _P, _I, _I, _I, _P)),
     # (table, n, idx, out, m, mode, stream)
-    "mq3d_gather": (_P, _I, _P, _P, ctypes.c_longlong, _I, _P),
+    "mq3d_gather": (_I, (_P, _I, _P, _P, ctypes.c_longlong, _I, _P)),
 }
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 _last_build_seconds: Optional[float] = None
 _last_build_report: str = ""
 _launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}
@@ -90,12 +96,69 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def source_hash(flags, sources) -> str:
+    """16 hex digits of the hash of the flags and the sources (names and
+    bytes): the key of a built library's file name."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _source_hash() -> str:
+    return source_hash(NVCC_FLAGS, _sources())
+
+
+def run_tool(cmd, what: str) -> str:
+    """Run a compiler command; return its output, raise with it on failure."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build_into(lib_path: Path, make: Callable[[Path], object]) -> None:
+    """Have make(tmp) write a library at a name of this process and thread,
+    then move it to lib_path with os.replace: builds that start together
+    (xdist workers, the ranks of a process group) each load a whole file.
+    The temporary is removed when make raises."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(
+        f"{lib_path.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    try:
+        make(tmp)
+        os.replace(tmp, lib_path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def load_typed(lib_path: Path, signatures) -> ctypes.CDLL:
+    """Load a shared library and type the C entry points of `signatures`
+    (name -> (restype, argtypes))."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+    return lib
+
+
+class LazyLibrary:
+    """A library built and loaded on first use, once per process."""
+
+    def __init__(self, build: Callable[[], Path], signatures):
+        self._build = build
+        self._signatures = signatures
+        self._lock = threading.Lock()
+        self.lib: Optional[ctypes.CDLL] = None
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self.lib is None:
+                self.lib = load_typed(self._build(), self._signatures)
+            return self.lib
 
 
 def find_nvcc() -> str:
@@ -126,23 +189,16 @@ def compile_library(sources, lib_path: Path) -> str:
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for cmd in cmds]
     outs = [p.communicate() for p in procs]
-    tmp = lib_path.with_name(f"{tag}.tmp.so")
     try:
         for cmd, p, (out, err) in zip(cmds, procs, outs):
             if p.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}")
-        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(link, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
+        build_into(lib_path, lambda tmp: run_tool(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)], "nvcc link"))
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-        tmp.unlink(missing_ok=True)
     return "\n".join(line.strip() for out, err in outs
                      for line in (out + err).splitlines()
                      if "ptxas" in line or "spill" in line)
@@ -164,21 +220,15 @@ def build(force: bool = False) -> Path:
 def load(lib_path: Path, names=None) -> ctypes.CDLL:
     """Load a built library and type its C entry points (`names`, default
     all of them)."""
-    lib = ctypes.CDLL(str(lib_path))
-    for name in names or _SIGNATURES:
-        fn = getattr(lib, name)
-        fn.argtypes = list(_SIGNATURES[name])
-        fn.restype = ctypes.c_int
-    return lib
+    return load_typed(lib_path, {n: _SIGNATURES[n] for n in names or _SIGNATURES})
+
+
+_kernels = LazyLibrary(build, _SIGNATURES)
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = load(build())
-        return _lib
+    return _kernels.get()
 
 
 def check(err: int, name: str) -> None:

@@ -2,10 +2,12 @@
 
 The reference writes and reads PNGs with cv2 (reference:
 scripts/dataio/image_data_io.py:64-81).  This module needs neither cv2 nor
-PIL: the writer emits filter-0 scanlines through zlib, and the reader
-undoes all five PNG row filters, so it reads what cv2, PIL or the JAX
-build's native writer produce.  Three-channel arrays are BGR at this
-module's surface, as with cv2.
+PIL.  `imwrite` encodes through the native IO runtime (utils/native.py,
+csrc/mqio.cpp); `encode_png` is its plain version, filter-0 scanlines
+through Python's zlib, the same bytes where both link the same zlib.  The
+reader undoes all five PNG row filters, so it reads what cv2, PIL or either
+writer produce.  Three-channel arrays are BGR at this module's surface, as
+with cv2.
 """
 
 from __future__ import annotations
@@ -13,9 +15,11 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
+
+from mq3d_tpu_torch.utils import native
 
 _MAGIC = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -46,6 +50,15 @@ def encode_png(img: np.ndarray, compression_level: int = 3) -> bytes:
         _chunk(b"IDAT", zlib.compress(rows.tobytes(), compression_level)),
         _chunk(b"IEND", b""),
     ])
+
+
+def write_png_batch_plain(paths: List[Path], imgs: np.ndarray,
+                          compression_level: int = 3) -> np.ndarray:
+    """Plain version of native.write_png_batch: encode_png per image, one
+    after another.  Returns the mask of files written (all)."""
+    for p, img in zip(paths, imgs):
+        Path(p).write_bytes(encode_png(img, compression_level))
+    return np.ones(len(paths), bool)
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -134,12 +147,14 @@ def imread_bgr(path: Path) -> Optional[np.ndarray]:
 
 
 def imwrite(path: Path, img: np.ndarray, compression_level: int = 3):
-    """Write a PNG; float arrays are rounded-and-clipped to uint8 the way
-    cv2.imwrite does (saturate_cast)."""
+    """Write a PNG through the native runtime; float arrays are
+    rounded-and-clipped to uint8 the way cv2.imwrite does (saturate_cast).
+    Raises when the file cannot be written."""
     path = Path(path)
     if path.suffix.lower() != ".png":
         raise ValueError(f"only PNG is supported: {path}")
     path.parent.mkdir(parents=True, exist_ok=True)
     if img.dtype != np.uint8:
         img = np.clip(np.rint(img), 0, 255).astype(np.uint8)
-    path.write_bytes(encode_png(img, compression_level))
+    if not native.write_png(path, img, compression_level):
+        raise OSError(f"failed to write {path}")

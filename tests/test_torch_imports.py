@@ -78,3 +78,38 @@ def test_guard_refuses_a_forbidden_import():
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode != 0 and "refused" in proc.stderr
+
+
+SLICE8_MODULES = [
+    "mq3d_tpu_torch.utils.native", "mq3d_tpu_torch.utils.png",
+    "mq3d_tpu_torch.eval.motion_stats", "mq3d_tpu_torch.analysis.sessions",
+    *(f"mq3d_tpu_torch.scripts.{name}" for name in (
+        "visualize_camera_trajectories", "compute_hmd_motion_stats",
+        "compute_controller_motion_stats", "analyze_recording_lengths",
+        "analyze_duration_discrepancy", "find_optimal_timestamp_offset",
+        "rename_timestamps", "trim_recordings", "analyze_fog_no_fog_mapping"))]
+
+
+def test_slice8_modules_import_under_the_guard():
+    """The native IO runtime's bindings and the host tools, without the
+    walk's other modules imported first; importing builds nothing."""
+    walk = _SCRIPT[_SCRIPT.index("names = "):_SCRIPT.index("for name in names")]
+    script = _SCRIPT.replace(walk, f"names = {SLICE8_MODULES!r}\n") + (
+        "from mq3d_tpu_torch.utils import native\n"
+        "assert native._runtime.lib is None\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == str(len(SLICE8_MODULES))
+
+
+def test_native_runtime_builds_from_the_port_source():
+    """The runtime's source is the port's own copy; no file of the port
+    names the JAX build's native/ directory or its library."""
+    from mq3d_tpu_torch.utils import native
+
+    assert native.SOURCE == REPO / "mq3d_tpu_torch/csrc/mqio.cpp"
+    for path in (REPO / "mq3d_tpu_torch").rglob("*"):
+        if path.suffix in (".py", ".cpp", ".cu"):
+            text = path.read_text()
+            assert "native/mqio" not in text and "_mqio.so" not in text, path

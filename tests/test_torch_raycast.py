@@ -153,6 +153,88 @@ def test_pools_and_shift_match_jax():
                                       np.asarray(jax_rc._shift_clamped(x, d, axis)))
 
 
+# -- the edge budget's overflow against the JAX package ----------------------
+#
+# A volume of the first 3 frames only: views 3-7 look at walls it never
+# saw, and every miss is an edge pixel at every level, so at 160x128 their
+# edge sets outgrow the budget (a forced edge_cap of 1024, below the 4096
+# floor of the per-level caps).  Both packages must count the same
+# overflow per view and per batch, and the pixels left out of the re-march
+# keep the same upsampled depth.  Tolerances as assert_depth_close.
+
+OVERFLOW_VIEWS = [3, 4, 5, 6, 7]
+OVERFLOW_SIZE = (160, 128)
+OVERFLOW_CAP = 1024
+
+
+@pytest.fixture(scope="module")
+def partial_volumes(loaded):
+    ds, depth, valid, K, T_wc = loaded
+    jv = JaxVolume(JaxConfig(**SMALL))
+    jv.integrate(depth[:3], K[:3], T_wc[:3], valid[:3])
+    state = {k: np.array(v) for k, v in jv.state._asdict().items()}
+    cfg = TSDFConfig(**SMALL)
+    w, h = OVERFLOW_SIZE
+    K = K.copy()
+    K[:, 0] *= np.float32(w / int(ds.widths[0]))
+    K[:, 1] *= np.float32(h / int(ds.heights[0]))
+    return jv, TSDFVolume(cfg, state_from_numpy(cfg, state, "cpu")), K, T_wc
+
+
+def _jax_render(jv, K, T_wc, edge_cap):
+    """JAX `_render_frames` as its `_render_frames_device` calls it, with
+    an explicit edge_cap."""
+    slot_dist, ext, aabb, n_bucket = jax_rc._prep_cache.get(jv)
+    T_cw = np.linalg.inv(np.asarray(T_wc, np.float64)).astype(np.float32)
+    z, overflow = jax_rc._render_frames(
+        jv.cfg, slot_dist, ext, aabb, n_bucket, jnp.asarray(K, jnp.float32),
+        jnp.asarray(T_cw[:, :3, :3]), jnp.asarray(np.ascontiguousarray(T_cw[:, :3, 3])),
+        jnp.float32(0.05), jnp.float32(jv.cfg.depth_max * 1.5), *OVERFLOW_SIZE,
+        edge_cap, jnp.float32(1e-3))
+    return np.asarray(z), int(overflow)
+
+
+def _port_render(tv, K, T_wc, edge_cap):
+    z, overflow = rc._render_frames_device(tv, K, T_wc, *OVERFLOW_SIZE, edge_cap=edge_cap)
+    return z.numpy(), int(overflow)
+
+
+def _assert_overflow_matches(jv, tv, K, T_wc):
+    want, want_over = _jax_render(jv, K, T_wc, OVERFLOW_CAP)
+    got, over = _port_render(tv, K, T_wc, OVERFLOW_CAP)
+    assert over == want_over > 0
+    assert_depth_close(want, got)
+    # The pixels the budget left out: where the capped render differs from
+    # one whose budget covers every edge pixel.
+    full, full_over = _port_render(tv, K, T_wc, 1 << 30)
+    assert full_over < over
+    left_out = ~((full == got) | (np.isinf(full) & np.isinf(got)))
+    assert left_out.sum() > 100
+    w, g = want[left_out], got[left_out]
+    fw, fg = np.isfinite(w), np.isfinite(g)
+    assert fw.mean() > 0.5
+    assert (fw == fg).mean() >= 0.999
+    both = fw & fg
+    assert (np.abs(g[both] - w[both]) <= 1e-4).mean() >= 0.999
+    return over
+
+
+@pytest.mark.parametrize("view", OVERFLOW_VIEWS)
+def test_edge_overflow_per_view_matches_jax(partial_volumes, view):
+    jv, tv, K, T_wc = partial_volumes
+    _assert_overflow_matches(jv, tv, K[[view]], T_wc[[view]])
+
+
+def test_edge_overflow_of_a_batch_matches_jax(partial_volumes):
+    """One call for the five views: the budget is the batch's, filled by
+    flat index, so its count is not the sum of the views'."""
+    jv, tv, K, T_wc = partial_volumes
+    over = _assert_overflow_matches(jv, tv, K[OVERFLOW_VIEWS], T_wc[OVERFLOW_VIEWS])
+    per_view = sum(_port_render(tv, K[[v]], T_wc[[v]], OVERFLOW_CAP)[1]
+                   for v in OVERFLOW_VIEWS)
+    assert over != per_view
+
+
 # -- analytic scenes of tests/test_raycast_adversarial.py, on the port --------
 
 W, H = 320, 240
