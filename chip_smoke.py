@@ -95,6 +95,23 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      find_optimal_timestamp_offset, rename_timestamps on a copy and
      analyze_fog_no_fog_mapping with their outputs checked, and the tools
      that read CSVs with pandas when this machine has pandas
+  11. the last slice's paths: bench.py's workload (1000 frames of 320x288
+     from 50 unique renders, PRODUCTION_INTEGRATION, groups of 5 chunks of
+     20 frames) through integrate_chunks_u16 on the quantized stack and
+     through TSDFVolume.integrate_scan on the same stack dequantized on
+     the host (volumes identical, K1 launched on each run, counts reset
+     just before and read just after; frames/s after a warm-up group and
+     bytes to the card per launch printed), the scan's first 200 frames
+     against 10 integrate(auto_split=False) calls (identical), the u16
+     volume against one built on the unquantized depth (printed);
+     convert_yuv420_888_to_bgr on a 1280x960 frame of the furnished room
+     equal to its convert_yuv_batch row (K2 launched once); then the
+     study at the reference's size (10 participants x Fog/NoFog, 180 s of
+     HMD and two-hand controller poses at 90 Hz each) through the
+     motion-stats CLIs, the engine (every paired t-test equal to scipy's
+     ttest_rel; the built-in fog effect on head_cumulative_radians found
+     at one-tailed p < 0.05), the report writers and the survey CLI, and
+     the ten study CLIs in full where matplotlib and seaborn import
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
 """
@@ -107,16 +124,20 @@ import io
 import json
 import os
 import re
+import runpy
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from mq3d_tpu_torch.analysis import report as study_report
+from mq3d_tpu_torch.analysis import stats as study_stats
 from mq3d_tpu_torch.config.configs import (
     PRODUCTION_INTEGRATION,
     PipelineConfigs,
@@ -126,6 +147,7 @@ from mq3d_tpu_torch.config.configs import (
 from mq3d_tpu_torch.dataio.data_io import DataIO
 from mq3d_tpu_torch.dataio.ply import TriangleMesh, read_ply, write_ply_mesh
 from mq3d_tpu_torch.eval.metrics import nearest_distances
+from mq3d_tpu_torch.eval.quality import CSV_FIELDS as QUALITY_CSV_FIELDS
 from mq3d_tpu_torch.export.colmap import qvec2rotmat, read_cameras_binary, read_images_binary
 from mq3d_tpu_torch.export.fbx import read_fbx_mesh
 from mq3d_tpu_torch.geometry import quaternion as quat
@@ -139,7 +161,13 @@ from mq3d_tpu_torch.ops.gather import MODES as gather_modes
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.sampling import sample_points_uniformly
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
-from mq3d_tpu_torch.ops.yuv import bgr_to_gray, yuv420_to_8uc3, yuv420_to_bgr
+from mq3d_tpu_torch.ops.yuv import (
+    bgr_to_gray,
+    convert_yuv420_888_to_bgr,
+    convert_yuv_batch,
+    yuv420_to_8uc3,
+    yuv420_to_bgr,
+)
 from mq3d_tpu_torch.pipeline.processor import run_full_pipeline
 from mq3d_tpu_torch.pipeline.stages import YUV_BATCH
 from mq3d_tpu_torch.parallel import dist as pdist
@@ -153,16 +181,26 @@ from mq3d_tpu_torch.recon.integrate import (
 )
 from mq3d_tpu_torch.recon.reconstruct import load_depth_datasets
 from mq3d_tpu_torch.scripts import (
+    analyze_combined_motion_stats,
+    analyze_controller_motion_stats,
     analyze_fog_no_fog_mapping,
+    analyze_hmd_motion_stats,
+    analyze_mesh_quality_stats,
     analyze_recording_lengths,
+    analyze_simple_mesh_metrics,
+    analyze_survey_hypotheses,
     build_colmap_project,
     compare_mesh_to_ground_truth,
+    compute_controller_motion_stats,
     compute_hmd_motion_stats,
     convert_depth_to_linear_map,
     convert_yuv_to_rgb,
     downsample_fbx_mesh,
     evaluate_mesh_quality,
     find_optimal_timestamp_offset,
+    generate_comprehensive_quality_analysis,
+    generate_participant_demographics,
+    generate_simple_pairwise_report,
     reconstruct_scene,
     rename_timestamps,
     trim_recordings,
@@ -172,6 +210,8 @@ from mq3d_tpu_torch.scripts import run_full_pipeline as pipeline_cli
 from mq3d_tpu_torch.testing.synthetic import (
     ROOM_CLUTTER,
     SyntheticSceneConfig,
+    intrinsics_from_cfg,
+    orbit_poses_o3d,
     quest_scene,
     render_box_depth,
     write_synthetic_project,
@@ -510,6 +550,17 @@ def time_k1_on_tile(patch, vi, ui) -> None:
         f"{b_ms:.4f} ms ({b_by})")
 
 
+def _same_volume(a, b) -> dict:
+    """{field: equal} of two TSDF states over a's active blocks."""
+    n = a.n_active
+    return {"n_active": a.n_active == b.n_active,
+            "slot_table": torch.equal(a.slot_table, b.slot_table),
+            "block_coords": torch.equal(a.block_coords[:n], b.block_coords[:n]),
+            "tsdf": torch.equal(a.tsdf[:n], b.tsdf[:n]),
+            "weight": torch.equal(a.weight[:n], b.weight[:n]),
+            "counters": (a.overflow, a.dropped_active) == (b.overflow, b.dropped_active)}
+
+
 def plain_path(session: Path, configs: PipelineConfigs, vol: TSDFVolume) -> None:
     """Phase 4: the same depth integrated with the flat gather."""
     ic = configs.reconstruction.depth_integration
@@ -521,15 +572,7 @@ def plain_path(session: Path, configs: PipelineConfigs, vol: TSDFVolume) -> None
                             vbg_opt=TSDFVolume(cfg, device="cuda"))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    a, b = vol.state, plain.state
-    n = a.n_active
-    same = {
-        "n_active": a.n_active == b.n_active,
-        "slot_table": torch.equal(a.slot_table, b.slot_table),
-        "block_coords": torch.equal(a.block_coords[:n], b.block_coords[:n]),
-        "weight": torch.equal(a.weight[:n], b.weight[:n]),
-        "tsdf": torch.equal(a.tsdf[:n], b.tsdf[:n]),
-    }
+    same = _same_volume(vol.state, plain.state)
     log(f"[phase 4] flat-lookup integration {secs:.2f} s; identical to the "
         f"kernel path: {same}")
     if not all(same.values()):
@@ -1730,6 +1773,396 @@ def native_runtime_and_tools(work: Path, session: Path) -> None:
     host_tools(work, session)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the uint16 depth stream at bench.py's workload, the single-frame
+# YUV API and the study analysis at the reference's size
+# ---------------------------------------------------------------------------
+
+BENCH_FRAMES, BENCH_UNIQUE, BENCH_SCAN, BENCH_CHUNK = 1000, 50, 5, 20
+
+
+def bench_capture():
+    """bench.py's capture (make_capture), made with the port's synthetic
+    helpers: 1000 frames of 320x288 cycling through 50 unique renders of
+    the box-room orbit.  Returns depth, K, T_wc, valid (host numpy)."""
+    n, h, w = BENCH_FRAMES, 288, 320
+    cfg = SyntheticSceneConfig(n_frames=n, depth_width=w, depth_height=h, sweep=2 * np.pi)
+    fx, fy, cx, cy = intrinsics_from_cfg(cfg, w, h)
+    cxf = w - cx
+    poses_cw = orbit_poses_o3d(cfg).extrinsics_cw.astype(np.float64)
+    step = n // BENCH_UNIQUE
+    renders = np.stack([render_box_depth(poses_cw[i * step], fx, fy, cxf, cy, w, h,
+                                         cfg.box_min, cfg.box_max)
+                        for i in range(BENCH_UNIQUE)]).astype(np.float32)
+    depth = renders[np.arange(n) % BENCH_UNIQUE]
+    K = np.zeros((n, 3, 3), np.float32)
+    K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2], K[:, 2, 2] = fx, fy, cxf, cy, 1
+    order = (np.arange(n) % BENCH_UNIQUE) * step
+    T_wc = np.linalg.inv(poses_cw[order]).astype(np.float32)
+    return depth, K, T_wc, np.ones(n, bool)
+
+
+def _groups(*arrays):
+    """Per group of BENCH_SCAN chunks of BENCH_CHUNK frames: each array's
+    frames reshaped to (S, C, ...)."""
+    per = BENCH_SCAN * BENCH_CHUNK
+    for s0 in range(0, BENCH_FRAMES, per):
+        yield [a[s0:s0 + per].reshape(BENCH_SCAN, BENCH_CHUNK, *a.shape[1:]) for a in arrays]
+
+
+def _tsdf_diff(a, b, cfg) -> dict:
+    """a's volume against b's: max and mean |a.tsdf - b.tsdf| over the
+    voxels both observed (weight > 0 in both), the voxels whose weights
+    differ, and a's blocks that b lacks."""
+    n = a.n_active
+    slots = b.slot_table[tsdf_ops._block_keys(a.block_coords[:n], cfg.grid_dim)].long()
+    has = slots >= 0
+    ia, ib = torch.nonzero(has).squeeze(1), slots[has]
+    both = (a.weight[ia] > 0) & (b.weight[ib] > 0)
+    diff = (a.tsdf[ia] - b.tsdf[ib]).abs()[both]
+    return {"max": float(diff.max()) if diff.numel() else 0.0,
+            "mean": float(diff.mean()) if diff.numel() else 0.0,
+            "weights differ": int((a.weight[ia] != b.weight[ib]).sum()),
+            "voxels compared": int(diff.numel()),
+            "blocks absent": int((~has).sum())}
+
+
+def u16_stream(smi: str) -> dict:
+    """Phase 11 (a): bench.py's 1000-frame workload through
+    integrate_chunks_u16, then through TSDFVolume.integrate_scan on the
+    same stack dequantized on the host; the first 200 frames of the scan
+    against 10 integrate(auto_split=False) calls; the u16 volume against
+    one built on the unquantized depth."""
+    t0 = time.perf_counter()
+    depth, K, T_wc, valid = bench_capture()
+    cfg = tsdf_config_from_integration(SimpleNamespace(**PRODUCTION_INTEGRATION))
+    dq, scale = tsdf_ops.quantize_depth_u16(depth, cfg.depth_max)
+    dep_f = dq.astype(np.float32) * np.float32(1.0 / np.float32(scale))
+    log(f"[phase 11] bench.py's capture: {BENCH_FRAMES} frames of 320x288 ({BENCH_UNIQUE} "
+        f"unique renders), groups of {BENCH_SCAN} chunks of {BENCH_CHUNK} frames; "
+        f"PRODUCTION_INTEGRATION (voxel {cfg.voxel_size} m, {cfg.block_count} blocks, "
+        f"chunk_active_capacity {cfg.chunk_active_capacity}); scale {scale!r} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # Run 1: the uint16 stream, dequantized on the card.  As in bench.py,
+    # the first group is a warm-up and the clock runs over the other 900
+    # frames, synchronized at both ends.
+    state = tsdf_ops.create_state(cfg, "cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for g, (d, k, t, v) in enumerate(_groups(dq, K, T_wc, valid)):
+        if g == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (d, k, t, v)]
+        tsdf_ops.integrate_chunks_u16(cfg, state, args[0], scale, *args[1:])
+    torch.cuda.synchronize()
+    u16_s = time.perf_counter() - t0
+    # The group's depth, K, T_wc and valid, the scale, and each chunk's T_cw,
+    # which integrate_chunk works out on the host from T_wc.
+    u16_bytes = sum(a.numel() * a.element_size() for a in args) + 4 + t.nbytes
+    u16_k1 = _build.launch_counts()["patch_lookup"]
+
+    # Run 2: integrate_scan on the host-dequantized float32 stack, timed
+    # the same way; the state after the first 200 frames is kept for the
+    # per-chunk check.
+    vol = TSDFVolume(cfg, device="cuda")
+    first = None
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for g, (d, k, t, v) in enumerate(_groups(dep_f, K, T_wc, valid)):
+        if g == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        vol.integrate_scan(d, k, t, v)
+        if g == 1:
+            first = dataclasses.replace(vol.state, **{
+                name: getattr(vol.state, name).clone()
+                for name in ("slot_table", "block_coords", "tsdf", "weight")})
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    scan_k1 = _build.launch_counts()["patch_lookup"]
+    # integrate's copies, chunk by chunk: depth, K, T_wc, valid and T_cw.
+    f32_bytes = sum(a.nbytes for a in (d, k, t, v)) + t.nbytes
+    same = _same_volume(state, vol.state)
+
+    # The first 200 frames: integrate_scan == 10 integrate(auto_split=False).
+    chunked = TSDFVolume(cfg, device="cuda")
+    for c in range(0, 200, BENCH_CHUNK):
+        sl = slice(c, c + BENCH_CHUNK)
+        chunked.integrate(dep_f[sl], K[sl], T_wc[sl], valid[sl], auto_split=False)
+    first_same = all(_same_volume(chunked.state, first).values())
+    del chunked, first
+
+    # The u16 volume against one built on the unquantized depth.
+    exact = TSDFVolume(cfg, device="cuda")
+    for d, k, t, v in _groups(depth, K, T_wc, valid):
+        exact.integrate_scan(d, k, t, v)
+    diff = _tsdf_diff(state, exact.state, cfg)
+    timed = BENCH_FRAMES - BENCH_SCAN * BENCH_CHUNK
+    log(f"[phase 11] uint16 stream (integrate_chunks_u16): {timed / u16_s:.1f} frames/s "
+        f"({timed} frames after a warm-up group in {u16_s:.2f} s), {u16_bytes} bytes to the "
+        f"card per launch, K1 launches {u16_k1}; integrate_scan on the dequantized float32 "
+        f"stack: {timed / scan_s:.1f} frames/s ({scan_s:.2f} s), {f32_bytes} bytes per "
+        f"launch, K1 launches {scan_k1}; {smi}")
+    log(f"[phase 11] n_active {state.n_active}, overflow {state.overflow}, dropped_active "
+        f"{state.dropped_active} (no auto-split); u16 == dequantized float32: {same}; first "
+        f"200 frames, integrate_scan == 10 integrate(auto_split=False): {first_same}; "
+        f"against the unquantized depth ({exact.n_active} blocks): {diff}")
+    checks = {"u16 == dequantized float32": all(same.values()),
+              "K1 launched on the u16 run": u16_k1 > 0,
+              "K1 launched on the scan run": scan_k1 > 0,
+              "integrate_scan == per-chunk integrate": first_same,
+              "n_active > 0": state.n_active > 0}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"uint16 stream checks failed: {failed}")
+    return {"u16_k1": u16_k1, "scan_k1": scan_k1}
+
+
+def single_frame_yuv(work: Path) -> int:
+    """Phase 11 (a), last part: on a 4-frame capture of the furnished
+    room at Quest scale, convert_yuv420_888_to_bgr on one 1280x960 frame
+    equals that frame's row of convert_yuv_batch; K2 launched once."""
+    sample = work / "yuv_sample"
+    write_synthetic_project(sample, quest_scene(4, ROOM_CLUTTER), workers=4)
+    color = DataIO(sample).color
+    fmt = color.load_image_format_info(Side.LEFT)
+    raws = [color.load_yuv(Side.LEFT, ts) for ts in color.get_yuv_timestamps(Side.LEFT)]
+    batch = convert_yuv_batch(raws, fmt, device="cuda")
+    row = len(raws) // 2
+    _build.reset_launch_counts()
+    one = convert_yuv420_888_to_bgr(raws[row], fmt, device="cuda")
+    k2 = _build.launch_counts()["i420_to_bgr"]
+    equal = one.shape == (fmt.height, fmt.width, 3) and np.array_equal(one, batch[row])
+    log(f"[phase 11] convert_yuv420_888_to_bgr on frame {row} of {len(raws)} "
+        f"({fmt.width}x{fmt.height}) of the furnished room: equal to convert_yuv_batch's row "
+        f"{equal}; K2 launches {k2}")
+    if not (equal and k2 == 1):
+        raise AssertionError(f"single-frame YUV: equal {equal}, K2 launches {k2}")
+    return k2
+
+
+STUDY_PAIRS, STUDY_ROWS, STUDY_DT_MS = 10, 16_200, 11.1  # 180 s at 90 Hz
+
+
+def _write_study_session(d: Path, rng, sweep: float, reach: float) -> None:
+    """hmd_poses.csv (STUDY_ROWS rows) and controller_poses.csv (two hands)
+    in tests/test_analysis_tree.py's pose-CSV schema: a head turning
+    through `sweep` radians on a small circle, hands swinging by `reach`."""
+    d.mkdir(parents=True)
+    n = STUDY_ROWS
+    t = np.arange(n) * STUDY_DT_MS + 1.7e12
+    ang = np.linspace(0, sweep, n)
+    pos = np.stack([np.cos(ang), np.full(n, 1.6), np.sin(ang)], -1)
+    pos += rng.normal(0, 0.002, (n, 3))
+    quat_ = np.stack([np.zeros(n), np.sin(ang / 2), np.zeros(n), np.cos(ang / 2)], -1)
+    head = "unix_time,pos_x,pos_y,pos_z,rot_x,rot_y,rot_z,rot_w"
+    rows = np.concatenate([t[:, None], pos, quat_], 1)
+    np.savetxt(d / "hmd_poses.csv", rows, fmt="%.17g", delimiter=",", header=head,
+               comments="")
+    swing = reach * np.sin(np.linspace(0, 40 * np.pi, n))
+    with open(d / "controller_poses.csv", "w") as f:
+        f.write(head.replace("unix_time,", "unix_time,hand,") + "\n")
+        for hand, off in (("left", -0.3), ("right", 0.3)):
+            p = pos + np.stack([np.full(n, off), swing, np.zeros(n)], -1)
+            p += rng.normal(0, 0.002, (n, 3))
+            f.writelines(f"{r[0]!r},{hand},{r[1]!r},{r[2]!r},{r[3]!r},{r[4]!r},{r[5]!r},"
+                         f"{r[6]!r},{r[7]!r}\n"
+                         for r in np.concatenate([t[:, None], p, quat_], 1).tolist())
+
+
+def _write_quality_scores(path: Path, rng) -> None:
+    """A seeded 10-pair quality_scores.csv in eval/quality.write_scores_csv's
+    columns, the fog meshes scoring higher."""
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=QUALITY_CSV_FIELDS)
+        w.writeheader()
+        for i in range(STUDY_PAIRS):
+            for cond, boost in (("fog", 1.2), ("nofog", 1.0)):
+                row = {k: float(rng.uniform(0.3, 0.9)) for k in QUALITY_CSV_FIELDS}
+                row.update(name=f"P{i:02d}_20260101_{100000 + i:06d}__20260101_"
+                                f"{110000 + i:06d}_{cond}", path=f"/meshes/{i}_{cond}.ply",
+                           Q_raw=float(rng.uniform(0.4, 0.7) * boost),
+                           Q_norm=float(rng.uniform(0.2, 0.8) * boost),
+                           num_vertices=int(rng.integers(100_000, 1_000_000)),
+                           num_triangles=int(rng.integers(200_000, 2_000_000)),
+                           component_count=int(rng.integers(1, 30)),
+                           degenerate_triangles=int(rng.integers(0, 50)))
+                w.writerow(row)
+
+
+def _write_survey(path: Path, rng) -> None:
+    """A seeded survey of 10 in tests/test_analysis_tree.py's schema."""
+    n = STUDY_PAIRS
+    cols = {"Participant": [f"P{i}" for i in range(n)],
+            "Age": rng.integers(20, 40, n).tolist(),
+            "Gender": rng.choice(["F", "M", "NB"], n).tolist(),
+            "Nationality": rng.choice(["DE", "FR", "IT"], n).tolist(),
+            "Education - Highest Obtained": rng.choice(["BSc", "MSc", "PhD"], n).tolist(),
+            "Education - Currently Pursued": rng.choice(["MSc", "PhD", "None"], n).tolist(),
+            "Experience using VR Tools (yrs)": rng.uniform(0, 10, n).tolist(),
+            "Experience with Video Games (yrs)": rng.uniform(0, 20, n).tolist(),
+            "Laterality": rng.choice(["Right", "Left"], n).tolist(),
+            "Glass-wearer": rng.choice(["Yes", "No"], n).tolist(),
+            "Wore glasses during experiment": rng.choice(["Yes", "No"], n).tolist(),
+            "SUS_Score_sphere": rng.uniform(60, 95, n).tolist()}
+    for base in ("FSS_FlowTotal", "TLX_1", "TLX_2", "TLX_4", "TLX_6"):
+        cols[f"{base}_sphere"] = rng.uniform(2, 6, n).tolist()
+        cols[f"{base}_nosphere"] = rng.uniform(2, 6, n).tolist()
+    for i in (11, 12, 13, 14):
+        cols[f"IPQ_{i}_sphere"] = rng.integers(1, 8, n).tolist()
+        cols[f"IPQ_{i}_nosphere"] = rng.integers(1, 8, n).tolist()
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cols)
+        w.writerows(zip(*cols.values()))
+
+
+def _paired_t_checked(df, metrics, results) -> int:
+    """Every paired t-test row of `results` against scipy's ttest_rel on
+    the paired columns (one-tailed rows: halved toward fog > nofog), equal
+    exactly; returns the rows checked."""
+    from scipy import stats as sps
+
+    checked = 0
+    by_name = {m.display: m for m in metrics}
+    for _, r in results.iterrows():
+        if "t-test" not in r["test"] or "Paired" not in r["test"]:
+            continue
+        m = by_name[r["metric"]]
+        fog, nofog, _ = study_stats.paired_values(df, m.col)
+        t, p = sps.ttest_rel(fog, nofog)
+        if m.one_tailed:
+            p = p / 2 if t > 0 else 1 - p / 2
+        if (r["statistic"], r["p_value"]) != (float(t), float(p)):
+            raise AssertionError(f"{m.col}: engine t={r['statistic']!r} p={r['p_value']!r}, "
+                                 f"scipy t={float(t)!r} p={float(p)!r}")
+        checked += 1
+    return checked
+
+
+def study(work: Path) -> None:
+    """Phase 11 (b): the study at the reference's size: 10 participants x
+    {Fog, NoFog}, 180 s of poses each, through the motion-stats CLIs, the
+    engine, the report writers and the survey CLI; the figure CLIs where
+    matplotlib and seaborn import."""
+    if importlib.util.find_spec("pandas") is None:
+        log("[phase 11] no pandas here: the study runs only in the CPU tests "
+            "(tests/test_torch_study*.py)")
+        return
+    import pandas as pd
+    import scipy
+
+    root = work / "study11"
+    rng = np.random.default_rng(SEED)
+    secs = {}
+    t0 = time.perf_counter()
+    sessions, participants = [], []
+    for i in range(STUDY_PAIRS):
+        pace, reach = rng.uniform(0.8, 1.2), rng.uniform(0.05, 0.3)
+        for cond, turns in (("Fog", 3 * np.pi), ("NoFog", 2 * np.pi)):
+            d = root / cond / f"s{i:02d}"
+            _write_study_session(d, rng, turns * pace, reach * rng.uniform(0.9, 1.1))
+            sessions.append(str(d))
+            participants += ["--participant", f"P{i:02d}"]
+    secs["sessions written"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    hmd_csv, ctl_csv = root / "hmd_all_summary.csv", root / "controller_all_summary.csv"
+    _printed(compute_hmd_motion_stats.main, sessions + ["--summary-csv", str(hmd_csv)]
+             + participants)
+    _printed(compute_controller_motion_stats.main,
+             sessions + ["--summary-csv", str(ctl_csv)] + participants)
+    secs["motion stats"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    hmd = study_stats.infer_condition(pd.read_csv(hmd_csv))
+    ctl = study_stats.infer_condition(pd.read_csv(ctl_csv))
+    hand, inter = analyze_controller_motion_stats.split_hand_frames(ctl)
+    _write_quality_scores(root / "quality_scores.csv", rng)
+    quality = analyze_mesh_quality_stats.load_and_pair(root / "quality_scores.csv")
+    tables = {}
+    checked = 0
+    for name, df, metrics in (("hmd", hmd, study_stats.HMD_METRICS),
+                              ("hand", hand, study_stats.HAND_METRICS),
+                              ("interhand", inter, study_stats.INTER_HAND_METRICS),
+                              ("quality", quality, study_stats.QUALITY_METRICS)):
+        tables[name] = study_stats.condition_tests(df, metrics)
+        checked += _paired_t_checked(df, metrics, tables[name])
+    improvements = study_stats.improvement_analysis(hmd, study_stats.HMD_METRICS)
+    secs["engine"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = root / "reports"
+    study_report.write_statistical_report(tables["hmd"], hmd, improvements,
+                                          out / "statistical_report.txt")
+    study_report.write_latex_table(tables["hmd"][["metric", "statistic", "p_value"]],
+                                   out / "hmd.tex", caption="HMD motion", label="tab:hmd")
+    study_report.write_html_dashboard(out / "study.html", "Fog vs NoFog", [
+        {"title": name, "table": t, "sig_col": "significant"} for name, t in tables.items()])
+    survey_csv = root / "survey.csv"
+    _write_survey(survey_csv, rng)
+    _printed(analyze_survey_hypotheses.main, ["--input", str(survey_csv), "--output_dir",
+                                              str(root / "survey")])
+    hypotheses = pd.read_csv(root / "survey" / "survey_hypotheses_results.csv")
+    secs["writers and survey"] = time.perf_counter() - t0
+
+    head = tables["hmd"].set_index("metric").loc["Cumulative Head Rotation"]
+    log(f"[phase 11] study: {STUDY_PAIRS} participants x 2 conditions, {STUDY_ROWS} HMD and "
+        f"{2 * STUDY_ROWS} controller rows per session; {len(hmd)} HMD, {len(hand)} hand, "
+        f"{len(inter)} inter-hand and {len(quality)} quality rows; {checked} paired t-tests "
+        f"equal to scipy's ttest_rel; head_cumulative_radians {head['test']}, p="
+        f"{head['p_value']:.3g}, d={head['cohens_d']:.3f}; {len(hypotheses)} survey "
+        f"hypotheses; pandas {pd.__version__}, scipy {scipy.__version__}; seconds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    checks = {"20 HMD sessions": len(hmd) == 2 * STUDY_PAIRS,
+              "paired t-tests checked": checked > 0,
+              "fog effect found (head_cumulative_radians, one-tailed p < 0.05)":
+                  ("fog > nofog" in head["test"] or "greater" in head["test"])
+                  and head["p_value"] < 0.05,
+              "report written": (out / "statistical_report.txt").is_file(),
+              "six survey hypotheses": len(hypotheses) == 6}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"study checks failed: {failed}")
+
+    if not all(importlib.util.find_spec(m) for m in ("matplotlib", "seaborn")):
+        log("[phase 11] no matplotlib or seaborn here: the figures were not drawn (the ten "
+            "study CLIs run in full in the CPU tests, tests/test_torch_study_cli*.py)")
+        return
+    t0 = time.perf_counter()
+    figs = root / "figures"
+    _printed(analyze_hmd_motion_stats.main, ["--input_csv", str(hmd_csv), "--output_dir",
+                                             str(figs / "hmd")])
+    argv, sys.argv = sys.argv, ["analyze_hmd_motion_stats_median", "--input_csv",
+                                str(hmd_csv), "--output_dir", str(figs / "hmd_median")]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            runpy.run_module("mq3d_tpu_torch.scripts.analyze_hmd_motion_stats_median",
+                             run_name="__main__")
+    finally:
+        sys.argv = argv
+    _printed(analyze_controller_motion_stats.main, ["--input_csv", str(ctl_csv),
+                                                    "--output_dir", str(figs / "ctl")])
+    _printed(analyze_combined_motion_stats.main, [
+        "--hmd_csv", str(hmd_csv), "--controller_csv", str(ctl_csv), "--output_dir",
+        str(figs / "combined")])
+    q = ["--quality-scores", str(root / "quality_scores.csv")]
+    _printed(analyze_mesh_quality_stats.main, q + ["--output-dir", str(figs / "quality")])
+    _printed(analyze_simple_mesh_metrics.main, q + ["--output-dir", str(figs / "simple")])
+    _printed(generate_simple_pairwise_report.main, q + ["--output", str(figs / "pairs.html")])
+    _printed(generate_comprehensive_quality_analysis.main,
+             q + ["--output", str(figs / "comprehensive.html")])
+    _printed(generate_participant_demographics.main, ["--input", str(survey_csv),
+                                                      "--output_dir", str(figs / "demo")])
+    pngs = sorted(figs.rglob("*.png"))
+    log(f"[phase 11] matplotlib and seaborn here: the figure CLIs wrote {len(pngs)} PNGs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(pngs) < 20:
+        raise AssertionError(f"figure CLIs wrote {len(pngs)} PNGs")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1817,6 +2250,13 @@ def main() -> None:
         t0 = time.perf_counter()
         native_runtime_and_tools(work, session)
         log(f"[phase 10] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        phase11 = u16_stream(smi)
+        kernels[0]["launches_phase11"] = phase11
+        kernels[1]["launches_phase11"] = single_frame_yuv(work)
+        study(work)
+        log(f"[phase 11] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -23,6 +23,10 @@ from mq3d_tpu_torch.export.fbx_binary import read_fbx_mesh as read_binary_fbx_me
 from mq3d_tpu_torch.export.fbx_binary import write_fbx_mesh
 
 
+def fbx_available() -> bool:
+    return True  # the native binary writer is always available
+
+
 def _write_ascii_fbx(mesh: TriangleMesh, path: Path):
     """Minimal FBX 7.3 ASCII file: one mesh node with vertex colors."""
     verts = np.asarray(mesh.vertices, np.float64)

@@ -596,11 +596,42 @@ def integrate_windows(cfg: TSDFConfig, state: TSDFState, one_pass) -> None:
 def integrate_chunks(cfg: TSDFConfig, state: TSDFState, depth, intrinsics,
                      extrinsics_wc, frame_valid) -> TSDFState:
     """S chunks of C frames ((S, C, H, W) depth), one after another;
-    identical to S integrate_chunk calls (no auto-split)."""
+    identical to S integrate_chunk calls (no auto-split: blocks past
+    cfg.chunk_active_capacity are counted in state.dropped_active)."""
     for s in range(depth.shape[0]):
         integrate_chunk(cfg, state, depth[s], intrinsics[s], extrinsics_wc[s],
                         frame_valid[s])
     return state
+
+
+def quantize_depth_u16(depth: np.ndarray, depth_max: float):
+    """Host uint16 fixed-point encoding of metric depth for streaming:
+    scale = 65534/depth_max (0.061 mm step at 4 m).  0 stays the invalid
+    code; valid depths clamp to [1, 65535].  Returns (uint16 array, scale),
+    the JAX build's bytes: numpy 2 keeps `float32 array * Python float` in
+    float32."""
+    scale = 65534.0 / float(depth_max)
+    q = np.rint(np.asarray(depth, np.float32) * scale)
+    q = np.where(np.asarray(depth) > 0, np.clip(q, 1, 65535), 0)
+    return q.astype(np.uint16), scale
+
+
+def integrate_chunks_u16(cfg: TSDFConfig, state: TSDFState, depth_q, scale,
+                         intrinsics, extrinsics_wc, frame_valid) -> TSDFState:
+    """integrate_chunks on an (S, C, H, W) uint16 depth stack from
+    quantize_depth_u16, dequantized on the state's device, so the stream
+    crosses to the card at half the float32 bytes.
+
+    The dequantization is the JAX build's float32 expression
+    q * (1 / float32(scale)): the reciprocal is one float32 division of
+    tensors, then one multiply per element, so the result is bit-identical
+    to integrate_chunks on the same stack dequantized on the host."""
+    dev = state.device
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    inv = torch.ones((), dtype=torch.float32, device=dev) / scale
+    depth = _as_tensor(depth_q, torch.uint16, dev).to(torch.float32) * inv
+    return integrate_chunks(cfg, state, depth, intrinsics, extrinsics_wc,
+                            frame_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -977,6 +1008,17 @@ class TSDFVolume:
             return self
         integrate_windows(self.cfg, st,
                           lambda skip: integrate_chunk(self.cfg, st, *args, skip, T_cw))
+        return self
+
+    def integrate_scan(self, depth, intrinsics, extrinsics_wc, frame_valid):
+        """Fuse an (S, C, H, W) group of S chunks (numpy arrays or tensors),
+        one integrate(..., auto_split=False) call per chunk.  No auto-split:
+        blocks a chunk touches past cfg.chunk_active_capacity are dropped
+        and counted in state.dropped_active, for the caller to check once
+        per group."""
+        for s in range(depth.shape[0]):
+            self.integrate(depth[s], intrinsics[s], extrinsics_wc[s], frame_valid[s],
+                           auto_split=False)
         return self
 
     # -- persistence ---------------------------------------------------------------

@@ -85,6 +85,12 @@ def split_yuv420_planes(
     return y, u, v
 
 
+def assemble_i420(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Planes -> packed I420 buffer of shape (H*3//2, W), as cv2 expects."""
+    h, w = y.shape
+    return np.concatenate([y.ravel(), u.ravel(), v.ravel()]).reshape(h * 3 // 2, w)
+
+
 # ---------------------------------------------------------------------------
 # Batched colour conversion (bit-exact with OpenCV BT.601)
 # ---------------------------------------------------------------------------
@@ -149,6 +155,15 @@ def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Te
     _build.check(err, "i420_to_bgr")
     _build.count_launch("i420_to_bgr")
     return out
+
+
+def convert_yuv420_888_to_bgr(
+    raw_data, format_info: ImageFormatInfo, uv_order: str = "NV12", device="cuda",
+) -> np.ndarray:
+    """One frame, the reference's single-frame API (reference
+    image_utils.py:60-71): de-stride on the host, convert on `device` (K2
+    with N=1 on the card).  Returns (H, W, 3) BGR uint8 on the host."""
+    return convert_yuv_batch([raw_data], format_info, uv_order, device)[0]
 
 
 def convert_yuv_batch(

@@ -111,6 +111,23 @@ class PipelineProcessor:
             device=self.device,
         )
 
+    def run_full_pipeline(self):
+        """The three stages in order with the JAX build's banners; returns
+        the reconstructed volume (None when nothing was reconstructed)."""
+        print("\n" + "=" * 80)
+        print("Running Full Pipeline")
+        print("=" * 80)
+        print("\n[Step 1/3] Converting YUV to RGB...")
+        self.convert_yuv_to_rgb()
+        print("\n[Step 2/3] Converting depth to linear...")
+        self.convert_depth_to_linear()
+        print("\n[Step 3/3] Reconstructing scene...")
+        volume = self.reconstruct_scene()
+        print("\n" + "=" * 80)
+        print("Pipeline Complete!")
+        print("=" * 80)
+        return volume
+
 
 @dataclass
 class PipelineRun:

@@ -186,6 +186,13 @@ def bgr_to_i420(bgr: np.ndarray) -> np.ndarray:
     return np.concatenate([p.ravel() for p in planes]).reshape(h * 3 // 2, w)
 
 
+def wall_color(points_world: np.ndarray, box_min, box_max) -> np.ndarray:
+    """Deterministic RGB in [0, 1] from a hit position on the box walls: a
+    smooth position gradient."""
+    extent = box_max - box_min
+    return np.clip((points_world - box_min) / extent, 0.0, 1.0)
+
+
 def _color_frame(pose_cw, cfg: SyntheticSceneConfig) -> np.ndarray:
     """I420 bytes of one colour frame: a smooth gradient of the hit point's
     position on the box walls."""
@@ -196,8 +203,7 @@ def _color_frame(pose_cw, cfg: SyntheticSceneConfig) -> np.ndarray:
                          cfg.clutter)
     pts = pose_cw[:3, 3] + z[..., None] * (_camera_rays(fx, fy, cx_flipped, cy, w, h)
                                            @ pose_cw[:3, :3].T)
-    extent = cfg.box_max - cfg.box_min
-    rgb = (np.clip((pts - cfg.box_min) / extent, 0.0, 1.0) * 255).astype(np.uint8)
+    rgb = (wall_color(pts, cfg.box_min, cfg.box_max) * 255).astype(np.uint8)
     return bgr_to_i420(rgb[..., ::-1])
 
 

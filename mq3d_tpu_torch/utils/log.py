@@ -53,3 +53,12 @@ class StageTimer:
             dt = time.perf_counter() - t0
             self.records.append((name, dt))
             print(f"[Timing] {name}: {dt:.2f}s", file=sys.stderr)
+
+    @property
+    def total(self) -> float:
+        return sum(dt for _, dt in self.records)
+
+    def summary(self) -> str:
+        lines = [f"{name}: {dt:.2f} s" for name, dt in self.records]
+        lines.append(f"total: {self.total:.2f} s")
+        return "\n".join(lines)

@@ -133,6 +133,12 @@ def decode_png(blob: bytes) -> np.ndarray:
     return pix.reshape(h, w) if ch == 1 else pix.reshape(h, w, ch)
 
 
+# libpng's png_set_rgb_to_gray(png, 1, 0.299, 0.587) coefficients.
+_GRAY_R = 29900 * 32768 // 100000
+_GRAY_G = 58700 * 32768 // 100000
+_GRAY_B = 32768 - _GRAY_R - _GRAY_G
+
+
 def imread_bgr(path: Path) -> Optional[np.ndarray]:
     """(H, W, 3) BGR uint8, or None when the file does not exist."""
     path = Path(path)
@@ -144,6 +150,24 @@ def imread_bgr(path: Path) -> Optional[np.ndarray]:
     elif img.shape[2] == 2:  # gray + alpha
         img = np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., 2::-1] if img.shape[2] >= 3 else img)
+
+
+def imread_gray(path: Path) -> Optional[np.ndarray]:
+    """(H, W) uint8, or None when the file does not exist.  Colour files
+    are reduced as cv2.imread(path, IMREAD_GRAYSCALE) reduces them, through
+    libpng's rgb-to-gray: coefficients 0.299 and 0.587 in 1/32768 units,
+    truncated, blue takes the rest, and the weighted sum is truncated;
+    alpha is dropped."""
+    path = Path(path)
+    if not path.exists():
+        return None
+    img = decode_png(path.read_bytes())
+    if img.ndim == 2:
+        return img
+    if img.shape[2] < 3:  # gray + alpha
+        return np.ascontiguousarray(img[..., 0])
+    r, g, b = (img[..., i].astype(np.uint32) for i in range(3))
+    return ((_GRAY_R * r + _GRAY_G * g + _GRAY_B * b) >> 15).astype(np.uint8)
 
 
 def imwrite(path: Path, img: np.ndarray, compression_level: int = 3):

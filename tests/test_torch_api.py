@@ -1,0 +1,214 @@
+"""Public-name parity: the port offers every public name of the JAX package.
+
+For each module of mq3d_tpu with a counterpart in mq3d_tpu_torch (the same
+dotted path under the other package), every public top-level name the
+module defines, and every public attribute of its public classes (methods,
+properties, fields), must exist in the counterpart; so must every JAX
+module have a counterpart.  The same holds for the CLIs: each script of
+scripts/ has a module of mq3d_tpu_torch/scripts with its public names.
+Names imported from elsewhere (typing aliases, numpy, other modules'
+functions) are not the module's own and are not checked.  The exceptions
+are listed below, one line of reason each.
+"""
+
+import ast
+import importlib
+import inspect
+import pkgutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import mq3d_tpu
+
+REPO = Path(__file__).resolve().parent.parent
+
+# JAX modules without a counterpart.
+NO_COUNTERPART = {
+    "mq3d_tpu.utils.host": "works around the TPU plugin's scalar fetch; the port "
+                           "reads tensors with .item()/.cpu()",
+    "mq3d_tpu.ops.tsdf_pallas": "Pallas kernel K1; the port's is csrc/patch_lookup.cu "
+                                "behind ops/tsdf_patch.py",
+    "mq3d_tpu.ops.yuv_pallas": "Pallas kernel K2; the port's is csrc/i420.cu behind "
+                               "ops/yuv.py:yuv420_to_bgr",
+}
+# Public names without a counterpart.
+NO_NAME = {
+    "mq3d_tpu.config.configs.get_available_device": "device choice is "
+                                                     "mq3d_tpu_torch/device.py",
+    "mq3d_tpu.utils.native.native_available": "the JAX build falls back to Python "
+                                              "without the native library; the port "
+                                              "builds it or raises",
+    "mq3d_tpu.ops.tsdf.clear_device_extract_failures": "the JAX build falls back to "
+                                                       "host extraction after a device "
+                                                       "OOM; the port raises",
+}
+# Script-level names without a counterpart.
+NO_SCRIPT_NAME = {
+    "batch_run_full_pipeline.run_single_project": "the port runs every session, on "
+                                                  "one host or many, through "
+                                                  "parallel/multihost.py's "
+                                                  "per-session subprocess",
+}
+
+JAX_MODULES = sorted(m.name for m in pkgutil.walk_packages(mq3d_tpu.__path__, "mq3d_tpu."))
+
+
+def _own_names(mod):
+    """Public names `mod` defines itself, with their objects."""
+    out = {}
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or inspect.ismodule(obj):
+            continue
+        origin = getattr(obj, "__module__", None)
+        if (inspect.isclass(obj) or inspect.isfunction(obj)) and origin != mod.__name__:
+            continue  # imported from elsewhere
+        if origin == "typing" or type(obj).__module__ == "typing":
+            continue
+        out[name] = obj
+    return out
+
+
+def _class_members(cls):
+    names = {n for n in vars(cls) if not n.startswith("_")}
+    names |= {n for n in getattr(cls, "__annotations__", {}) if not n.startswith("_")}
+    return names
+
+
+def _has_member(cls, name):
+    if hasattr(cls, name):
+        return True
+    fields = getattr(cls, "__dataclass_fields__", {})
+    return name in fields or name in getattr(cls, "__annotations__", {})
+
+
+@pytest.mark.parametrize("name", JAX_MODULES)
+def test_port_has_every_public_name(name):
+    if name in NO_COUNTERPART:
+        return
+    jmod = importlib.import_module(name)
+    tmod = importlib.import_module("mq3d_tpu_torch" + name[len("mq3d_tpu"):])
+    missing = []
+    for attr, obj in _own_names(jmod).items():
+        key = f"{name}.{attr}"
+        if key in NO_NAME:
+            assert not hasattr(tmod, attr), f"{key} is listed as absent but exists"
+            continue
+        if not hasattr(tmod, attr):
+            missing.append(attr)
+            continue
+        if inspect.isclass(obj):
+            tcls = getattr(tmod, attr)
+            missing += [f"{attr}.{m}" for m in sorted(_class_members(obj))
+                        if not _has_member(tcls, m)]
+    assert not missing, missing
+
+
+def _script_names(path: Path):
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+SCRIPTS = sorted(p.stem for p in (REPO / "scripts").glob("*.py"))
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_port_has_every_cli(script):
+    port = REPO / "mq3d_tpu_torch/scripts" / f"{script}.py"
+    assert port.exists(), script
+    missing = sorted(n for n in _script_names(REPO / "scripts" / f"{script}.py")
+                     - _script_names(port) if f"{script}.{n}" not in NO_SCRIPT_NAME)
+    assert not missing, missing
+    mod = importlib.import_module(f"mq3d_tpu_torch.scripts.{script}")
+    assert callable(mod.main)
+
+
+def test_exceptions_are_current():
+    """Every listed exception names something the JAX side still has."""
+    for name in NO_COUNTERPART:
+        assert name in JAX_MODULES
+        assert importlib.util.find_spec("mq3d_tpu_torch" + name[len("mq3d_tpu"):]) is None
+    for key in NO_NAME:
+        mod, attr = key.rsplit(".", 1)
+        assert hasattr(importlib.import_module(mod), attr), key
+    for key in NO_SCRIPT_NAME:
+        script, attr = key.split(".")
+        assert attr in _script_names(REPO / "scripts" / f"{script}.py"), key
+
+
+# The small names this file's parity made the port add, each against the
+# JAX package's: the same outputs on the same inputs.
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA"])
+def test_imread_gray_matches_jax(tmp_path, mode):
+    """PNG files of each colour type (written by PIL) read as the JAX
+    package reads them through cv2's IMREAD_GRAYSCALE."""
+    from PIL import Image
+
+    from mq3d_tpu.utils.png import imread_gray as jax_imread_gray
+    from mq3d_tpu_torch.utils.png import imread_gray
+
+    rng = np.random.default_rng(len(mode))
+    shape = (37, 53) if mode == "L" else (37, 53, len(mode))
+    pix = rng.integers(0, 256, shape, dtype=np.uint8)
+    if mode in ("RGB", "RGBA"):
+        pix[:5, :, 1] = pix[:5, :, 2] = pix[:5, :, 0]  # gray pixels in colour files
+    path = tmp_path / f"{mode}.png"
+    Image.fromarray(pix, mode).save(path)
+    got = imread_gray(path)
+    assert got.dtype == np.uint8 and got.shape == (37, 53)
+    np.testing.assert_array_equal(got, jax_imread_gray(path))
+    assert imread_gray(tmp_path / "missing.png") is None
+    assert jax_imread_gray(tmp_path / "missing.png") is None
+
+
+def test_stage_timer_summary_matches_jax(capsys):
+    from mq3d_tpu.utils.log import StageTimer as JaxTimer
+    from mq3d_tpu_torch.utils.log import StageTimer
+
+    records = [("convert_yuv_to_rgb", 1.234), ("reconstruct_scene", 20.5), ("x", 0.005)]
+    j, t = JaxTimer(), StageTimer()
+    j.records, t.records = list(records), list(records)
+    assert t.total == j.total and t.summary() == j.summary()
+    with t.stage("timed"):
+        pass
+    assert t.records[-1][0] == "timed" and t.total >= j.total
+
+
+def test_wall_color_and_fbx_available_match_jax():
+    from mq3d_tpu.export.fbx import fbx_available as jax_fbx_available
+    from mq3d_tpu.testing.synthetic import wall_color as jax_wall_color
+    from mq3d_tpu_torch.export.fbx import fbx_available
+    from mq3d_tpu_torch.testing.synthetic import DEFAULT_BOX_MAX, DEFAULT_BOX_MIN, wall_color
+
+    pts = np.random.default_rng(0).uniform(-3, 3, (500, 3))
+    got = wall_color(pts, DEFAULT_BOX_MIN, DEFAULT_BOX_MAX)
+    np.testing.assert_array_equal(got, jax_wall_color(pts, DEFAULT_BOX_MIN, DEFAULT_BOX_MAX))
+    assert got.min() == 0.0 and got.max() == 1.0
+    assert fbx_available() is jax_fbx_available() is True
+
+
+def test_processor_run_full_pipeline_matches_jax(monkeypatch, capsys):
+    """The method's stage order and banners, with each package's stage
+    methods replaced by recorders (the stages themselves are held against
+    JAX in tests/test_torch_pipeline.py)."""
+    from mq3d_tpu.pipeline.processor import PipelineProcessor as JaxProcessor
+    from mq3d_tpu_torch.pipeline.processor import PipelineProcessor
+
+    printed = {}
+    for name, cls in (("jax", JaxProcessor), ("port", PipelineProcessor)):
+        calls = []
+        for stage in ("convert_yuv_to_rgb", "convert_depth_to_linear", "reconstruct_scene"):
+            monkeypatch.setattr(cls, stage, lambda self, s=stage: calls.append(s) or s)
+        capsys.readouterr()
+        result = cls.run_full_pipeline(object.__new__(cls))
+        printed[name] = capsys.readouterr().out
+        assert calls == ["convert_yuv_to_rgb", "convert_depth_to_linear", "reconstruct_scene"]
+    assert printed["port"] == printed["jax"]
+    assert result == "reconstruct_scene"  # the port returns the volume

@@ -234,3 +234,49 @@ def test_nccl_world_of_one_equals_tsdf_volume_integrate(cuda_device):
     assert np.array_equal(a["slot_table"], vol.state.slot_table.cpu().numpy())
     for k in ("block_coords", "tsdf", "weight"):
         assert np.array_equal(a[k], getattr(vol.state, k)[:n].cpu().numpy()), k
+
+
+# The uint16 depth stream (ops/tsdf.py integrate_chunks_u16) on the card:
+# bench.py's capture style (orbit depth of the box room, 320x288) at the
+# production settings' 1 cm voxels, where K1 fetches the depth, cut to 2
+# groups of 3 chunks of 10 frames.  Tolerance: exact.
+
+@pytest.mark.cuda
+def test_u16_stream_on_the_card_matches_the_cpu_and_float32_paths(cuda_device):
+    from mq3d_tpu_torch.config.configs import PRODUCTION_INTEGRATION
+    from mq3d_tpu_torch.ops import tsdf
+    from mq3d_tpu_torch.testing.synthetic import (
+        SyntheticSceneConfig, intrinsics_from_cfg, orbit_poses_o3d, render_box_depth)
+
+    n, h, w = 60, 288, 320
+    scene = SyntheticSceneConfig(n_frames=n, depth_width=w, depth_height=h)
+    fx, fy, cx, cy = intrinsics_from_cfg(scene, w, h)
+    poses_cw = orbit_poses_o3d(scene).extrinsics_cw.astype(np.float64)
+    depth = np.stack([render_box_depth(p, fx, fy, w - cx, cy, w, h, scene.box_min,
+                                       scene.box_max) for p in poses_cw]).astype(np.float32)
+    K = np.tile(np.array([[fx, 0, w - cx], [0, fy, cy], [0, 0, 1]], np.float32), (n, 1, 1))
+    T = np.linalg.inv(poses_cw).astype(np.float32)
+    valid = np.ones(n, bool)
+    kw = {k: v for k, v in PRODUCTION_INTEGRATION.items() if k != "frames_per_batch"}
+    cfg = tsdf.TSDFConfig(**dict(kw, block_count=8192))
+    dq, scale = tsdf.quantize_depth_u16(depth, cfg.depth_max)
+    dep_f = dq.astype(np.float32) * np.float32(1.0 / np.float32(scale))
+
+    def run(device, d, u16):
+        state = tsdf.create_state(cfg, device)
+        for s0 in (0, 30):
+            args = [torch.from_numpy(a[s0:s0 + 30].reshape(3, 10, *a.shape[1:])).to(device)
+                    for a in (d, K, T, valid)]
+            if u16:
+                tsdf.integrate_chunks_u16(cfg, state, args[0], scale, *args[1:])
+            else:
+                tsdf.integrate_chunks(cfg, state, *args)
+        return tsdf.state_to_numpy(state)
+
+    _build.reset_launch_counts()
+    card = run(cuda_device, dq, True)
+    assert _build.launch_counts()["patch_lookup"] > 0
+    assert int(card["n_active"]) > 0
+    for other in (run("cpu", dq, True), run(cuda_device, dep_f, False)):
+        for k in card:
+            np.testing.assert_array_equal(other[k], card[k], err_msg=k)

@@ -1,9 +1,10 @@
 """Import guard for mq3d_tpu_torch and chip_smoke.py.
 
 The machine with the card has the standard library, torch, numpy and scipy,
-but not jax, pandas, cv2, PIL, yaml or tqdm, and the port must not need the
-JAX package.  In a fresh interpreter whose import system refuses those
-names, every module of mq3d_tpu_torch and chip_smoke must import.
+but not jax, pandas, cv2, PIL, yaml, tqdm, matplotlib or seaborn, and the
+port must not need the JAX package.  In a fresh interpreter whose import
+system refuses those names, every module of mq3d_tpu_torch and chip_smoke
+must import.
 """
 
 import subprocess
@@ -13,7 +14,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "mq3d_tpu", "pandas", "cv2", "PIL", "yaml", "tqdm")
+BLOCKED = ("jax", "jaxlib", "mq3d_tpu", "pandas", "cv2", "PIL", "yaml", "tqdm",
+           "matplotlib", "seaborn")
 
 _SCRIPT = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -113,3 +115,22 @@ def test_native_runtime_builds_from_the_port_source():
         if path.suffix in (".py", ".cpp", ".cu"):
             text = path.read_text()
             assert "native/mqio" not in text and "_mqio.so" not in text, path
+
+
+STUDY_MODULES = [
+    "mq3d_tpu_torch.analysis.stats", "mq3d_tpu_torch.analysis.report",
+    "mq3d_tpu_torch.analysis.plots",
+    *(f"mq3d_tpu_torch.scripts.{name}" for name in (
+        "analyze_hmd_motion_stats", "analyze_hmd_motion_stats_median",
+        "analyze_controller_motion_stats", "analyze_combined_motion_stats",
+        "analyze_mesh_quality_stats", "analyze_simple_mesh_metrics",
+        "generate_simple_pairwise_report", "generate_comprehensive_quality_analysis",
+        "analyze_survey_hypotheses", "generate_participant_demographics"))]
+
+
+@pytest.mark.parametrize("module", STUDY_MODULES)
+def test_study_modules_import_under_the_guard(module):
+    """The study-analysis layer and its CLIs, each alone in a fresh
+    interpreter under the guard: pandas, matplotlib and seaborn are
+    imported only inside the functions that draw or build frames."""
+    test_slice3_modules_import_under_the_guard(module)
