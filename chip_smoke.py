@@ -95,15 +95,18 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      find_optimal_timestamp_offset, rename_timestamps on a copy and
      analyze_fog_no_fog_mapping with their outputs checked, and the tools
      that read CSVs with pandas when this machine has pandas
-  11. the last slice's paths: bench.py's workload (1000 frames of 320x288
-     from 50 unique renders, PRODUCTION_INTEGRATION, groups of 5 chunks of
-     20 frames) through integrate_chunks_u16 on the quantized stack and
-     through TSDFVolume.integrate_scan on the same stack dequantized on
-     the host (volumes identical, K1 launched on each run, counts reset
+  11. the uint16 stream and scan-fused paths: bench.py's workload
+     (mq3d_tpu_torch.bench.make_capture: 1000 frames of 320x288 from 50
+     unique renders; bench_config(), the production TSDF settings; groups
+     of 5 chunks of 20 frames) through the bench's parts,
+     bench_integrate_fused_u16 on the quantized stack and
+     bench_integrate_fused on the same stack dequantized on the host, one
+     rep each (volumes identical, K1 launched on each run, counts reset
      just before and read just after; frames/s after a warm-up group and
-     bytes to the card per launch printed), the scan's first 200 frames
-     against 10 integrate(auto_split=False) calls (identical), the u16
-     volume against one built on the unquantized depth (printed);
+     bytes to the card per launch printed); TSDFVolume.integrate_scan on
+     the first 200 frames against 10 integrate(auto_split=False) calls
+     (identical); the u16 volume against bench_integrate_fused's on the
+     unquantized depth (printed);
      convert_yuv420_888_to_bgr on a 1280x960 frame of the furnished room
      equal to its convert_yuv_batch row (K2 launched once); then the
      study at the reference's size (10 participants x Fog/NoFog, 180 s of
@@ -112,6 +115,13 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      ttest_rel; the built-in fog effect on head_cumulative_radians found
      at one-tailed p < 0.05), the report writers and the survey CLI, and
      the ten study CLIs in full where matplotlib and seaborn import
+  12. the bench's entry point: `python -m mq3d_tpu_torch.bench --reps 1` in
+     a subprocess (its one JSON line on stdout with every key of bench.py's
+     line plus `device`, every number finite and positive, the card named),
+     then the two CPU reference tools once, bench_reference_cpu on 100
+     frames with --parity (the C++ loop within 2 % of the port's total
+     observations) and bench_reference_raycast on 4 views (its renders of
+     the port's marching-cubes mesh against the analytic depth)
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
 """
@@ -131,11 +141,11 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from mq3d_tpu_torch import bench
 from mq3d_tpu_torch.analysis import report as study_report
 from mq3d_tpu_torch.analysis import stats as study_stats
 from mq3d_tpu_torch.config.configs import (
@@ -210,8 +220,6 @@ from mq3d_tpu_torch.scripts import run_full_pipeline as pipeline_cli
 from mq3d_tpu_torch.testing.synthetic import (
     ROOM_CLUTTER,
     SyntheticSceneConfig,
-    intrinsics_from_cfg,
-    orbit_poses_o3d,
     quest_scene,
     render_box_depth,
     write_synthetic_project,
@@ -239,13 +247,6 @@ class _Tee(io.StringIO):
 
     def flush(self) -> None:
         sys.__stdout__.flush()
-
-
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _offset_view(t: torch.Tensor, elems: int = 1) -> torch.Tensor:
@@ -1778,38 +1779,6 @@ def native_runtime_and_tools(work: Path, session: Path) -> None:
 # YUV API and the study analysis at the reference's size
 # ---------------------------------------------------------------------------
 
-BENCH_FRAMES, BENCH_UNIQUE, BENCH_SCAN, BENCH_CHUNK = 1000, 50, 5, 20
-
-
-def bench_capture():
-    """bench.py's capture (make_capture), made with the port's synthetic
-    helpers: 1000 frames of 320x288 cycling through 50 unique renders of
-    the box-room orbit.  Returns depth, K, T_wc, valid (host numpy)."""
-    n, h, w = BENCH_FRAMES, 288, 320
-    cfg = SyntheticSceneConfig(n_frames=n, depth_width=w, depth_height=h, sweep=2 * np.pi)
-    fx, fy, cx, cy = intrinsics_from_cfg(cfg, w, h)
-    cxf = w - cx
-    poses_cw = orbit_poses_o3d(cfg).extrinsics_cw.astype(np.float64)
-    step = n // BENCH_UNIQUE
-    renders = np.stack([render_box_depth(poses_cw[i * step], fx, fy, cxf, cy, w, h,
-                                         cfg.box_min, cfg.box_max)
-                        for i in range(BENCH_UNIQUE)]).astype(np.float32)
-    depth = renders[np.arange(n) % BENCH_UNIQUE]
-    K = np.zeros((n, 3, 3), np.float32)
-    K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2], K[:, 2, 2] = fx, fy, cxf, cy, 1
-    order = (np.arange(n) % BENCH_UNIQUE) * step
-    T_wc = np.linalg.inv(poses_cw[order]).astype(np.float32)
-    return depth, K, T_wc, np.ones(n, bool)
-
-
-def _groups(*arrays):
-    """Per group of BENCH_SCAN chunks of BENCH_CHUNK frames: each array's
-    frames reshaped to (S, C, ...)."""
-    per = BENCH_SCAN * BENCH_CHUNK
-    for s0 in range(0, BENCH_FRAMES, per):
-        yield [a[s0:s0 + per].reshape(BENCH_SCAN, BENCH_CHUNK, *a.shape[1:]) for a in arrays]
-
-
 def _tsdf_diff(a, b, cfg) -> dict:
     """a's volume against b's: max and mean |a.tsdf - b.tsdf| over the
     voxels both observed (weight > 0 in both), the voxels whose weights
@@ -1827,97 +1796,77 @@ def _tsdf_diff(a, b, cfg) -> dict:
             "blocks absent": int((~has).sum())}
 
 
+def _group_bytes(depth_itemsize: int, extra: int = 0) -> int:
+    """Bytes to the card per scan-fused launch of the bench: the group's
+    depth, K, T_wc and valid, each chunk's T_cw (integrate_chunk works it
+    out on the host from T_wc), and `extra` (the uint16 scale)."""
+    per = bench.SCAN * bench.CHUNK
+    return per * (bench.H * bench.W * depth_itemsize + 9 * 4 + 16 * 4 + 1 + 16 * 4) + extra
+
+
 def u16_stream(smi: str) -> dict:
-    """Phase 11 (a): bench.py's 1000-frame workload through
-    integrate_chunks_u16, then through TSDFVolume.integrate_scan on the
-    same stack dequantized on the host; the first 200 frames of the scan
-    against 10 integrate(auto_split=False) calls; the u16 volume against
-    one built on the unquantized depth."""
+    """Phase 11 (a): bench.py's 1000-frame workload through the bench's
+    parts (mq3d_tpu_torch.bench): bench_integrate_fused_u16 on the
+    quantized stack, then bench_integrate_fused on the same stack
+    dequantized on the host; TSDFVolume.integrate_scan on the first 200
+    frames against 10 integrate(auto_split=False) calls; the u16 volume
+    against bench_integrate_fused's on the unquantized depth."""
     t0 = time.perf_counter()
-    depth, K, T_wc, valid = bench_capture()
-    cfg = tsdf_config_from_integration(SimpleNamespace(**PRODUCTION_INTEGRATION))
+    depth, K, T_wc, valid = bench.make_capture()[:4]
+    cfg = bench.bench_config()
     dq, scale = tsdf_ops.quantize_depth_u16(depth, cfg.depth_max)
     dep_f = dq.astype(np.float32) * np.float32(1.0 / np.float32(scale))
-    log(f"[phase 11] bench.py's capture: {BENCH_FRAMES} frames of 320x288 ({BENCH_UNIQUE} "
-        f"unique renders), groups of {BENCH_SCAN} chunks of {BENCH_CHUNK} frames; "
-        f"PRODUCTION_INTEGRATION (voxel {cfg.voxel_size} m, {cfg.block_count} blocks, "
-        f"chunk_active_capacity {cfg.chunk_active_capacity}); scale {scale!r} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    per = bench.SCAN * bench.CHUNK
+    log(f"[phase 11] bench.py's capture (bench.make_capture): {len(depth)} frames of "
+        f"{depth.shape[2]}x{depth.shape[1]} ({bench.UNIQUE} unique renders), groups of "
+        f"{bench.SCAN} chunks of {bench.CHUNK} frames; bench.bench_config() (voxel "
+        f"{cfg.voxel_size} m, {cfg.block_count} blocks, chunk_active_capacity "
+        f"{cfg.chunk_active_capacity}); scale {scale!r} ({time.perf_counter() - t0:.1f} s)")
 
-    # Run 1: the uint16 stream, dequantized on the card.  As in bench.py,
-    # the first group is a warm-up and the clock runs over the other 900
-    # frames, synchronized at both ends.
-    state = tsdf_ops.create_state(cfg, "cuda")
-    torch.cuda.synchronize()
+    # Run 1: the uint16 stream, dequantized on the card; run 2: the
+    # host-dequantized float32 stack.  Each part leaves its first group
+    # untimed and synchronizes at both ends of the clock.
     _build.reset_launch_counts()
-    for g, (d, k, t, v) in enumerate(_groups(dq, K, T_wc, valid)):
-        if g == 1:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (d, k, t, v)]
-        tsdf_ops.integrate_chunks_u16(cfg, state, args[0], scale, *args[1:])
-    torch.cuda.synchronize()
-    u16_s = time.perf_counter() - t0
-    # The group's depth, K, T_wc and valid, the scale, and each chunk's T_cw,
-    # which integrate_chunk works out on the host from T_wc.
-    u16_bytes = sum(a.numel() * a.element_size() for a in args) + 4 + t.nbytes
+    (u16_fps,), state = bench.bench_integrate_fused_u16(cfg, depth, K, T_wc, valid, "cuda", 1)
     u16_k1 = _build.launch_counts()["patch_lookup"]
-
-    # Run 2: integrate_scan on the host-dequantized float32 stack, timed
-    # the same way; the state after the first 200 frames is kept for the
-    # per-chunk check.
-    vol = TSDFVolume(cfg, device="cuda")
-    first = None
-    torch.cuda.synchronize()
     _build.reset_launch_counts()
-    for g, (d, k, t, v) in enumerate(_groups(dep_f, K, T_wc, valid)):
-        if g == 1:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        vol.integrate_scan(d, k, t, v)
-        if g == 1:
-            first = dataclasses.replace(vol.state, **{
-                name: getattr(vol.state, name).clone()
-                for name in ("slot_table", "block_coords", "tsdf", "weight")})
-    torch.cuda.synchronize()
-    scan_s = time.perf_counter() - t0
-    scan_k1 = _build.launch_counts()["patch_lookup"]
-    # integrate's copies, chunk by chunk: depth, K, T_wc, valid and T_cw.
-    f32_bytes = sum(a.nbytes for a in (d, k, t, v)) + t.nbytes
-    same = _same_volume(state, vol.state)
+    (f32_fps,), f32_state = bench.bench_integrate_fused(cfg, dep_f, K, T_wc, valid, "cuda", 1)
+    f32_k1 = _build.launch_counts()["patch_lookup"]
+    same = _same_volume(state, f32_state)
+    del f32_state
 
     # The first 200 frames: integrate_scan == 10 integrate(auto_split=False).
+    scan = TSDFVolume(cfg, device="cuda")
+    for s0 in range(0, 200, per):
+        scan.integrate_scan(*[bench._group(a, s0) for a in (dep_f, K, T_wc, valid)])
     chunked = TSDFVolume(cfg, device="cuda")
-    for c in range(0, 200, BENCH_CHUNK):
-        sl = slice(c, c + BENCH_CHUNK)
+    for c in range(0, 200, bench.CHUNK):
+        sl = slice(c, c + bench.CHUNK)
         chunked.integrate(dep_f[sl], K[sl], T_wc[sl], valid[sl], auto_split=False)
-    first_same = all(_same_volume(chunked.state, first).values())
-    del chunked, first
+    first_same = all(_same_volume(chunked.state, scan.state).values())
+    del chunked, scan
 
     # The u16 volume against one built on the unquantized depth.
-    exact = TSDFVolume(cfg, device="cuda")
-    for d, k, t, v in _groups(depth, K, T_wc, valid):
-        exact.integrate_scan(d, k, t, v)
-    diff = _tsdf_diff(state, exact.state, cfg)
-    timed = BENCH_FRAMES - BENCH_SCAN * BENCH_CHUNK
-    log(f"[phase 11] uint16 stream (integrate_chunks_u16): {timed / u16_s:.1f} frames/s "
-        f"({timed} frames after a warm-up group in {u16_s:.2f} s), {u16_bytes} bytes to the "
-        f"card per launch, K1 launches {u16_k1}; integrate_scan on the dequantized float32 "
-        f"stack: {timed / scan_s:.1f} frames/s ({scan_s:.2f} s), {f32_bytes} bytes per "
-        f"launch, K1 launches {scan_k1}; {smi}")
+    (exact_fps,), exact = bench.bench_integrate_fused(cfg, depth, K, T_wc, valid, "cuda", 1)
+    diff = _tsdf_diff(state, exact, cfg)
+    log(f"[phase 11] uint16 stream (bench_integrate_fused_u16): {u16_fps:.1f} frames/s "
+        f"({len(depth) - per} frames after a warm-up group), {_group_bytes(2, 4)} bytes to "
+        f"the card per launch, K1 launches {u16_k1}; bench_integrate_fused on the dequantized "
+        f"float32 stack: {f32_fps:.1f} frames/s, {_group_bytes(4)} bytes per launch, K1 "
+        f"launches {f32_k1}; on the unquantized depth {exact_fps:.1f} frames/s; {smi}")
     log(f"[phase 11] n_active {state.n_active}, overflow {state.overflow}, dropped_active "
         f"{state.dropped_active} (no auto-split); u16 == dequantized float32: {same}; first "
         f"200 frames, integrate_scan == 10 integrate(auto_split=False): {first_same}; "
         f"against the unquantized depth ({exact.n_active} blocks): {diff}")
     checks = {"u16 == dequantized float32": all(same.values()),
               "K1 launched on the u16 run": u16_k1 > 0,
-              "K1 launched on the scan run": scan_k1 > 0,
+              "K1 launched on the float32 run": f32_k1 > 0,
               "integrate_scan == per-chunk integrate": first_same,
               "n_active > 0": state.n_active > 0}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"uint16 stream checks failed: {failed}")
-    return {"u16_k1": u16_k1, "scan_k1": scan_k1}
+    return {"u16_k1": u16_k1, "f32_k1": f32_k1}
 
 
 def single_frame_yuv(work: Path) -> int:
@@ -2163,13 +2112,85 @@ def study(work: Path) -> None:
         raise AssertionError(f"figure CLIs wrote {len(pngs)} PNGs")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the bench's entry point and the two CPU reference tools
+# ---------------------------------------------------------------------------
+
+# The keys of bench.py's JSON line (bench.py:509-538); the port adds `device`.
+BENCH_EXTRA_KEYS = (
+    "tsdf_streamed_frames_per_sec", "tsdf_streamed_u16_frames_per_sec",
+    "tsdf_streamed_per_chunk_frames_per_sec", "tsdf_staging_mb_per_sec",
+    "raycast_ms_per_frame", "raycast_vs_embree_cpu", "raycast_vs_legacy_budget",
+    "raycast_stream_ms_per_frame", "raycast_stream_u16_ms_per_frame",
+    "sharded_prod_frames_per_sec", "e2e_pipeline_seconds")
+
+
+def _run_module(argv, timeout: int) -> subprocess.CompletedProcess:
+    """python -m <argv> from the repo root; raises with its output on failure."""
+    proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                          timeout=timeout, cwd=REPO)
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m {' '.join(argv)} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return proc
+
+
+def bench_entry_point() -> None:
+    """Phase 12: `python -m mq3d_tpu_torch.bench --reps 1` in a subprocess,
+    its one JSON line parsed with every key of bench.py's line and every
+    number finite; then bench_reference_cpu on 100 frames with --parity
+    and bench_reference_raycast on 4 views, each once."""
+    t0 = time.perf_counter()
+    proc = _run_module(["mq3d_tpu_torch.bench", "--reps", "1"], timeout=900)
+    out = proc.stdout.strip().splitlines()
+    line = json.loads(out[-1])
+    extra = line["extra"]
+    numbers = [line["value"], line["vs_baseline"]] + [extra.get(k) for k in BENCH_EXTRA_KEYS]
+    for msg in proc.stderr.splitlines():
+        if msg.startswith("[bench]"):
+            log(f"[phase 12] {msg}")
+    log(f"[phase 12] python -m mq3d_tpu_torch.bench --reps 1 ({time.perf_counter() - t0:.1f} "
+        f"s): {out[-1]}")
+    checks = {"one line on stdout": len(out) == 1,
+              "metric": (line["metric"], line["unit"]) == ("tsdf_frames_per_sec", "frames/s"),
+              "bench.py's keys and device": set(extra) == set(BENCH_EXTRA_KEYS) | {"device"},
+              "every number finite and positive": all(
+                  isinstance(v, (int, float)) and np.isfinite(v) and v > 0 for v in numbers),
+              "the card named": extra["device"].get("platform") == "gpu"
+                  and extra["device"].get("kind") == torch.cuda.get_device_name(0)}
+
+    t0 = time.perf_counter()
+    proc = _run_module(["mq3d_tpu_torch.tools.bench_reference_cpu", "100", "--reps", "1",
+                        "--parity"], timeout=600)
+    ref_cpu = json.loads(proc.stdout.strip().splitlines()[-1])
+    for msg in proc.stdout.strip().splitlines()[:-1]:
+        log(f"[phase 12] bench_reference_cpu: {msg}")
+    log(f"[phase 12] bench_reference_cpu 100 --reps 1 --parity: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    proc = _run_module(["mq3d_tpu_torch.tools.bench_reference_raycast", "4"], timeout=600)
+    ref_rc = json.loads(proc.stdout.strip().splitlines()[-1])
+    for msg in proc.stdout.strip().splitlines()[:-1]:
+        log(f"[phase 12] bench_reference_raycast: {msg}")
+    log(f"[phase 12] bench_reference_raycast 4: {time.perf_counter() - t0:.1f} s")
+    checks["reference parity within 2 %"] = ref_cpu["parity"]["rel"] < 0.02
+    checks["reference rates positive"] = all(
+        v > 0 for v in list(ref_cpu["frames_per_sec"].values())
+        + list(ref_rc["ms_per_frame"].values()))
+    checks["reference raycast against the analytic depth"] = (
+        ref_rc["accuracy"]["coverage"] > 0.9 and ref_rc["accuracy"]["median_mm"] < 5.0)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench entry point checks failed: {failed}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = gpu_name_and_power()
+    smi = bench.nvidia_smi()
     log(f"[phase 0] device {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -2257,6 +2278,10 @@ def main() -> None:
         kernels[1]["launches_phase11"] = single_frame_yuv(work)
         study(work)
         log(f"[phase 11] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        bench_entry_point()
+        log(f"[phase 12] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

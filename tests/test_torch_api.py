@@ -142,6 +142,23 @@ def test_exceptions_are_current():
         assert attr in _script_names(REPO / "scripts" / f"{script}.py"), key
 
 
+def _bench_functions(path: Path):
+    return {n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, ast.FunctionDef) and n.name.startswith("bench_")}
+
+
+def test_port_bench_has_every_bench_part():
+    """Every bench_* function of the root bench.py (the JAX side's
+    measuring entry point) has a counterpart in mq3d_tpu_torch/bench.py,
+    and so do make_capture and main."""
+    jax_parts = _bench_functions(REPO / "bench.py")
+    assert len(jax_parts) >= 7
+    port = REPO / "mq3d_tpu_torch/bench.py"
+    missing = sorted(jax_parts - _bench_functions(port))
+    assert not missing, missing
+    assert {"make_capture", "main"} <= _script_names(port)
+
+
 # The small names this file's parity made the port add, each against the
 # JAX package's: the same outputs on the same inputs.
 

@@ -134,3 +134,35 @@ def test_study_modules_import_under_the_guard(module):
     interpreter under the guard: pandas, matplotlib and seaborn are
     imported only inside the functions that draw or build frames."""
     test_slice3_modules_import_under_the_guard(module)
+
+
+BENCH_MODULES = ["mq3d_tpu_torch.bench", "mq3d_tpu_torch.tools._reference",
+                 "mq3d_tpu_torch.tools.bench_reference_cpu",
+                 "mq3d_tpu_torch.tools.bench_reference_raycast"]
+
+
+@pytest.mark.parametrize("module", BENCH_MODULES)
+def test_bench_modules_import_under_the_guard(module):
+    """The bench and its CPU reference tools, each alone in a fresh
+    interpreter under the guard: neither jax nor mq3d_tpu, and yaml only
+    inside bench_e2e; importing builds no reference library."""
+    walk = _SCRIPT[_SCRIPT.index("names = "):_SCRIPT.index("for name in names")]
+    script = _SCRIPT.replace(walk, f"names = [{module!r}]\n") + (
+        "from mq3d_tpu_torch.tools import bench_reference_cpu, bench_reference_raycast\n"
+        "assert bench_reference_cpu._lib.lib is None\n"
+        "assert bench_reference_raycast._lib.lib is None\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "1"
+
+
+def test_reference_tools_build_from_the_port_sources():
+    """The reference tools compile the port's own copies of the C++
+    baselines, not the JAX build's native/ files."""
+    from mq3d_tpu_torch.tools import bench_reference_cpu, bench_reference_raycast
+
+    assert bench_reference_cpu.SOURCE == REPO / "mq3d_tpu_torch/csrc/ref_tsdf_cpu.cpp"
+    assert bench_reference_raycast.SOURCE == REPO / "mq3d_tpu_torch/csrc/ref_raycast_cpu.cpp"
+    for mod in (bench_reference_cpu, bench_reference_raycast):
+        assert "native/" not in Path(mod.__file__).read_text(), mod.__name__
