@@ -41,19 +41,17 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      mesh size, Gauss-Newton residuals, raycast ms per frame and peak
      memory; the mesh must lie on the box walls and the rendered depth
      must match the analytic box depth
-  7. the shipped configuration at full width on the card: Quest-scale
-     captures of 200 frames per side through run_full_pipeline with
+  7. the shipped configuration at full width on the card: a Quest-scale
+     capture of 200 frames per side of the room furnished with
+     ROOM_CLUTTER through run_full_pipeline with
      config/pipeline_config.yml unchanged (every step, steps 1-2
      included; launch counts reset just before, read just after, and K1's
      launches of the fragment integrations counted apart), with substep
      seconds, edge counts, the pair ICP's last fitness and rmse, and peak
-     memory.  First the bare box room: its bare parallel walls let the
-     half-room fragments slide against each other in the scene ICP (the
-     JAX package's algorithm too), so its run is checked and its accuracy
-     only printed.  Then the room furnished with ROOM_CLUTTER: confidence
-     maps, poses against the ground truth, the colorless cloud and the
-     colored outputs must pass their gates.  Last, the device programs of
-     steps 1-2 timed alone at these shapes
+     memory; confidence maps, poses against the ground truth, the
+     colorless cloud and the colored outputs must pass their gates (the
+     bare box room's run of this config is phase 13's run_prod_e2e).
+     Last, the device programs of steps 1-2 timed alone at these shapes
   8. the user's tools after reconstruction, on the card: on phase 7's
      furnished-room session, the FBX export of --export-fbx read back
      against color_mesh.ply, build_colmap_project --include_points
@@ -89,16 +87,17 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      write_png_batch on the side's 200 colour frames against encode_png
      (equal pixels, and equal bytes where both link one zlib) and against
      step 0's own files; destride_plane against the numpy one at Quest
-     scale; median times of the PNG batch (native, encode_png on one
-     thread, and encode_png on the 8-thread pool step 0 used before the
-     runtime), the raw read and the de-striding; then visualize_camera_trajectories,
+     scale; median times of the PNG batch (native, and encode_png on the
+     8-thread pool step 0 used before the runtime; encode_png on one
+     thread is timed on its one call), the raw read and the de-striding;
+     then visualize_camera_trajectories,
      find_optimal_timestamp_offset, rename_timestamps on a copy and
      analyze_fog_no_fog_mapping with their outputs checked, and the tools
      that read CSVs with pandas when this machine has pandas
-  11. the uint16 stream and scan-fused paths: bench.py's workload
-     (mq3d_tpu_torch.bench.make_capture: 1000 frames of 320x288 from 50
-     unique renders; bench_config(), the production TSDF settings; groups
-     of 5 chunks of 20 frames) through the bench's parts,
+  11. the uint16 stream and scan-fused paths: bench.py's workload cut to
+     200 frames for time (mq3d_tpu_torch.bench.make_capture:
+     320x288 from 50 unique renders; bench_config(), the production TSDF
+     settings; groups of 5 chunks of 20 frames) through the bench's parts,
      bench_integrate_fused_u16 on the quantized stack and
      bench_integrate_fused on the same stack dequantized on the host, one
      rep each (volumes identical, K1 launched on each run, counts reset
@@ -115,13 +114,33 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      ttest_rel; the built-in fog effect on head_cumulative_radians found
      at one-tailed p < 0.05), the report writers and the survey CLI, and
      the ten study CLIs in full where matplotlib and seaborn import
-  12. the bench's entry point: `python -m mq3d_tpu_torch.bench --reps 1` in
-     a subprocess (its one JSON line on stdout with every key of bench.py's
+  12. the bench's entry point: `python -m mq3d_tpu_torch.bench --reps 1
+     --frames 200` (its capture cut from 1000 frames for time) in a
+     subprocess (its one JSON line on stdout with every key of bench.py's
      line plus `device`, every number finite and positive, the card named),
      then the two CPU reference tools once, bench_reference_cpu on 100
      frames with --parity (the C++ loop within 2 % of the port's total
      observations) and bench_reference_raycast on 4 views (its renders of
      the port's marching-cubes mesh against the analytic depth)
+  13. the last tools of tools/, each in a subprocess: `python -m
+     mq3d_tpu_torch.tools.run_prod_e2e` at its defaults (a fresh capture of
+     500 frames per side at Quest scale, 640x480 colour, through the
+     shipped config/pipeline_config.yml, every step on; rc 0, the
+     colorless cloud and volume, the colour mesh and the colour-aligned
+     depth written, every stage in pipeline_runtime.txt, [Substep] lines,
+     K1 and K2 launched, the card's name and power limit printed; its
+     stage and substep seconds printed; then phase 7's checks of the run
+     on its session and output: the bare box room's parallel walls let
+     the fragments slide against each other in the scene ICP, the JAX
+     package's algorithm too, so confidence maps and packs, 5 fragments
+     per side and the colored outputs are gated and the accuracy against
+     the ground truth only printed); bench_reference_stages --parity
+     with cut reps (the C++ confidence and the port's: valid counts equal
+     on >= 99.9 % of pixels, p99 |dconf| <= 0.01; both ICP residual
+     rotations under 0.01 deg; B9 and B10 on the card beside the C++ on one
+     and on all of the host's threads); bench_raycast on 4 views at
+     1280x960 (median error under a quarter voxel, 2.5 mm; K1 launched
+     while its volume is built)
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
 """
@@ -220,11 +239,13 @@ from mq3d_tpu_torch.scripts import run_full_pipeline as pipeline_cli
 from mq3d_tpu_torch.testing.synthetic import (
     ROOM_CLUTTER,
     SyntheticSceneConfig,
+    orbit_poses_o3d,
     quest_scene,
     render_box_depth,
     write_synthetic_project,
 )
 from mq3d_tpu_torch.tools import probe_gather
+from mq3d_tpu_torch.tools import run_prod_e2e
 from mq3d_tpu_torch.ops.yuv import destride_plane
 from mq3d_tpu_torch.utils import native
 from mq3d_tpu_torch.utils.devtime import bound_ms as bound
@@ -232,6 +253,11 @@ from mq3d_tpu_torch.utils.devtime import floor_ms, time_ms
 from mq3d_tpu_torch.utils.png import encode_png, imread_bgr, write_png_batch_plain
 
 SEED = 0
+# bench.py's capture is 1000 frames; phases 11 and 12 run it at 200 (two
+# groups of 5 chunks of 20 frames: one warm-up, one timed) so that the
+# whole smoke, phase 13's 500-frames-per-side run included, ends well
+# inside its 1200 s.
+BENCH_FRAMES = 200
 
 
 def log(msg: str) -> None:
@@ -950,10 +976,11 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
     """Phase 7: the shipped configuration, unchanged, on a Quest-scale
     capture of `room` on the card.  Returns (K1's launches on the fragment
     integrations, {check: passed} of the run, {check: passed} of its
-    accuracy against the scene's ground truth)."""
+    accuracy against the scene's ground truth, the session, the
+    reconstruction config)."""
     session = work / f"shipped_{room.replace(' ', '_')}"
     t0 = time.perf_counter()
-    _, _, gt = write_synthetic_project(session, scene, workers=8)
+    write_synthetic_project(session, scene, workers=8)
     log(f"[phase 7] {room}: synthetic capture of 2 sides x {scene.n_frames} frames, depth "
         f"{scene.depth_width}x{scene.depth_height}, colour "
         f"{scene.color_width}x{scene.color_height}, {len(scene.clutter)} clutter boxes "
@@ -991,29 +1018,51 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
     printed = out.getvalue()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    substeps: dict = {}
-    for name, secs in re.findall(r"\[Substep\] (\S+): (\S+)s", printed):
-        substeps[name] = substeps.get(name, 0.0) + float(secs)
     log(f"[phase 7] stage seconds: "
         + ", ".join(f"{k} {v:.2f}" for k, v in run.stage_seconds.items())
         + f"; total {total:.2f} s; peak device memory {peak_gb:.2f} GB")
     log("[phase 7] substep seconds (summed over repeats): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in substeps.items()))
+        + ", ".join(f"{k} {v:.3f}" for k, v in substeps_of(printed).items()))
+    log(f"[phase 7] launches {launches}; K1 on the fragment integrations {frag['k1']} "
+        f"(tiles {frag['tiles']}), on step 3 {launches['patch_lookup'] - frag['k1']}")
+    run_checks, accuracy = check_shipped_run("phase 7", session, scene, printed, rc, room)
+    run_checks["K1 launched on the fragment integrations"] = frag["k1"] > 0
+    run_checks["K1 launched on step 3"] = launches["patch_lookup"] > frag["k1"]
+    log(f"[phase 7] {room}: run checks {run_checks}; accuracy checks {accuracy}")
+    return frag["k1"], run_checks, accuracy, session, rc
+
+
+def substeps_of(printed: str) -> dict:
+    """{substep: seconds summed over its repeats} of a run's [Substep] lines."""
+    substeps: dict = {}
+    for name, secs in re.findall(r"\[Substep\] (\S+): (\S+)s", printed):
+        substeps[name] = substeps.get(name, 0.0) + float(secs)
+    return substeps
+
+
+def check_shipped_run(phase: str, session: Path, scene: SyntheticSceneConfig, printed: str,
+                      rc, room: str):
+    """The outputs of a run of the shipped configuration (phase 7's
+    furnished room, phase 13's run_prod_e2e box room), read from its
+    session and its printed output: edge counts and the pair ICP's last
+    fitness and rmse, confidence maps and packs, optimized poses against
+    the scene's ground truth, the colorless cloud on the walls, the
+    colored outputs.  Returns ({check: passed} of the run, {check:
+    passed} of its accuracy)."""
     frag_graphs = [tuple(map(int, m)) for m in re.findall(
         r"Fragment pose graph: (\d+) odometry edges, (\d+) loop candidates, (\d+) loops kept",
         printed)]
     prefilter = re.findall(r"Pre-filter kept (\d+) / (\d+) uncertain pairs", printed)
     scene_graph = _SCENE_RE.findall(printed)
     pairs = _PAIR_RE.findall(printed)
-    log(f"[phase 7] fragments {len(frag_graphs)}: odometry edges "
+    log(f"[{phase}] fragments {len(frag_graphs)}: odometry edges "
         f"{sum(g[0] for g in frag_graphs)}, loop candidates {sum(g[1] for g in frag_graphs)}, "
         f"loops kept {sum(g[2] for g in frag_graphs)}; pre-filter kept {prefilter}; scene "
         f"graph (nodes, edges, pruned) {scene_graph}")
-    log("[phase 7] pair ICP at the last level: " + "; ".join(
+    log(f"[{phase}] pair ICP at the last level: " + "; ".join(
         f"({s}, {t}) fitness {f} rmse {r}{' dropped' if d else ''}" for s, t, f, r, d in pairs))
-    log(f"[phase 7] launches {launches}; K1 on the fragment integrations {frag['k1']} "
-        f"(tiles {frag['tiles']}), on step 3 {launches['patch_lookup'] - frag['k1']}")
 
+    gt_cw = orbit_poses_o3d(scene).extrinsics_cw
     data_io = DataIO(session)
     conf_ok, conf_means, pose_err = {}, [], []
     for side in Side:
@@ -1027,7 +1076,7 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
                               and np.array_equal(pack_ts, np.sort(ds.timestamps)))
         conf_means.append(float(conf[cnt >= 2].mean()))
         opt = data_io.depth.load_optimized_depth_dataset(side)
-        cw, gt_cw = opt.transforms.extrinsics_cw, gt.extrinsics_cw
+        cw = opt.transforms.extrinsics_cw
         dpos = np.linalg.norm(cw[:, :3, 3] - gt_cw[:, :3, 3], axis=-1)
         cos = (np.einsum("nij,nij->n", cw[:, :3, :3], gt_cw[:, :3, :3]) - 1) / 2
         pose_err.append((float(dpos.max()), float(np.degrees(np.arccos(np.clip(cos, -1, 1))).max()),
@@ -1035,19 +1084,18 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
     pcd = read_ply(session / "reconstruction/colorless.ply")
     dist = wall_distance(pcd.points, scene)
     vs = rc.depth_integration.voxel_size
-    log(f"[phase 7] {room}: confidence maps and packs complete {conf_ok}; mean confidence "
+    log(f"[{phase}] {room}: confidence maps and packs complete {conf_ok}; mean confidence "
         f"where valid_count >= 2 {conf_means}; optimized poses vs ground truth (max position "
         f"error m, max angle deg, all frames) {pose_err}; colorless points {len(pcd.points)}, "
         f"wall distance median {np.median(dist):.5f} m p99 {np.quantile(dist, 0.99):.5f} m")
-    colored, _ = check_colored_outputs("phase 7", session, scene, printed, vs,
+    colored, _ = check_colored_outputs(phase, session, scene, printed, vs,
                                        sampled=rc.sample_point_cloud_from_colored_mesh)
+    per_side = -(-scene.n_frames // rc.fragment_generation.fragment_size)
     run_checks = {
         "steps 1 and 2 on": rc.estimate_depth_confidences and rc.optimize_depth_pose,
         "a confidence map for every frame, the pack complete and loading": all(conf_ok.values()),
         "mean confidence > 0.95 where valid_count >= 2": min(conf_means) > 0.95,
-        "K1 launched on the fragment integrations": frag["k1"] > 0,
-        "K1 launched on step 3": launches["patch_lookup"] > frag["k1"],
-        "two fragments per side": len(frag_graphs) == 4,
+        f"{per_side} fragments per side": len(frag_graphs) == 2 * per_side,
         "colored outputs written": all(v for k, v in colored.items()
                                        if "exist" in k or "one depth map" in k),
     }
@@ -1057,8 +1105,7 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
         "colorless points on the walls (p99 < 2 voxels)":
             float(np.quantile(dist, 0.99)) < 2 * vs,
     })
-    log(f"[phase 7] {room}: run checks {run_checks}; accuracy checks {accuracy}")
-    return frag["k1"], run_checks, accuracy, session, rc
+    return run_checks, accuracy
 
 
 def check_colored_outputs(phase: str, session: Path, scene: SyntheticSceneConfig,
@@ -1643,7 +1690,11 @@ def native_checks(work: Path, session: Path, info: dict) -> None:
     native_paths = [out_native / q.name for q in rgb]
     plain_paths = [out_plain / q.name for q in rgb]
     written = native.write_png_batch(native_paths, bgrs)
+    # The plain batch takes 7-8 s a call: the one call whose bytes are
+    # compared is also its time (pure Python and zlib: no warm-up to take).
+    t0 = time.perf_counter()
     write_png_batch_plain(plain_paths, bgrs)
+    png_plain_ms = (time.perf_counter() - t0) * 1e3
     same_zlib = info["zlib_runtime"] == info["zlib_python"]
     bytes_equal = all(a.read_bytes() == b.read_bytes() for a, b in zip(native_paths, plain_paths))
     step0_equal = all(a.read_bytes() == b.read_bytes() for a, b in zip(native_paths, rgb))
@@ -1655,14 +1706,13 @@ def native_checks(work: Path, session: Path, info: dict) -> None:
         raise AssertionError(f"write_png_batch: written {written.all()}, pixels {pixels_equal}, "
                              f"bytes {bytes_equal}, step 0's files {step0_equal}")
     png_ms = host_ms(lambda: native.write_png_batch(native_paths, bgrs), reps=3)
-    png_plain_ms = host_ms(lambda: write_png_batch_plain(plain_paths, bgrs), reps=3)
     png_pool_ms = host_ms(lambda: pool_write_png_batch(plain_paths, bgrs), reps=3)
     log(f"[phase 10] write_png_batch of {len(rgb)} {bgrs.shape[2]}x{bgrs.shape[1]} BGR frames "
         f"({bgrs.nbytes / 1e6:.1f} MB): pixels equal (every {step}th decoded), bytes equal to "
         f"encode_png's {bytes_equal} (zlib {info['zlib_runtime']} and Python's "
         f"{info['zlib_python']}) and to step 0's files {step0_equal}; {png_ms:.1f} ms native on "
-        f"{info['threads']} threads, {png_plain_ms:.1f} ms plain (encode_png, one thread), "
-        f"{png_pool_ms:.1f} ms encode_png on step 0's earlier pool of "
+        f"{info['threads']} threads, {png_plain_ms:.1f} ms plain (encode_png, one thread; one "
+        f"call), {png_pool_ms:.1f} ms encode_png on step 0's earlier pool of "
         f"{min(len(rgb), os.cpu_count() or 1, 8)} threads (median of 3 after a warm call)")
 
     w, h, rs = 1280, 960, 1344
@@ -1805,14 +1855,15 @@ def _group_bytes(depth_itemsize: int, extra: int = 0) -> int:
 
 
 def u16_stream(smi: str) -> dict:
-    """Phase 11 (a): bench.py's 1000-frame workload through the bench's
+    """Phase 11 (a): bench.py's workload, its first BENCH_FRAMES frames
+    (cut from 1000 for the smoke's time), through the bench's
     parts (mq3d_tpu_torch.bench): bench_integrate_fused_u16 on the
     quantized stack, then bench_integrate_fused on the same stack
     dequantized on the host; TSDFVolume.integrate_scan on the first 200
     frames against 10 integrate(auto_split=False) calls; the u16 volume
     against bench_integrate_fused's on the unquantized depth."""
     t0 = time.perf_counter()
-    depth, K, T_wc, valid = bench.make_capture()[:4]
+    depth, K, T_wc, valid = bench.make_capture(BENCH_FRAMES)[:4]
     cfg = bench.bench_config()
     dq, scale = tsdf_ops.quantize_depth_u16(depth, cfg.depth_max)
     dep_f = dq.astype(np.float32) * np.float32(1.0 / np.float32(scale))
@@ -2136,12 +2187,14 @@ def _run_module(argv, timeout: int) -> subprocess.CompletedProcess:
 
 
 def bench_entry_point() -> None:
-    """Phase 12: `python -m mq3d_tpu_torch.bench --reps 1` in a subprocess,
+    """Phase 12: `python -m mq3d_tpu_torch.bench --reps 1 --frames 200` (the
+    bench's capture cut from 1000 frames for the smoke's time) in a subprocess,
     its one JSON line parsed with every key of bench.py's line and every
     number finite; then bench_reference_cpu on 100 frames with --parity
     and bench_reference_raycast on 4 views, each once."""
     t0 = time.perf_counter()
-    proc = _run_module(["mq3d_tpu_torch.bench", "--reps", "1"], timeout=900)
+    proc = _run_module(["mq3d_tpu_torch.bench", "--reps", "1", "--frames",
+                        str(BENCH_FRAMES)], timeout=900)
     out = proc.stdout.strip().splitlines()
     line = json.loads(out[-1])
     extra = line["extra"]
@@ -2149,7 +2202,8 @@ def bench_entry_point() -> None:
     for msg in proc.stderr.splitlines():
         if msg.startswith("[bench]"):
             log(f"[phase 12] {msg}")
-    log(f"[phase 12] python -m mq3d_tpu_torch.bench --reps 1 ({time.perf_counter() - t0:.1f} "
+    log(f"[phase 12] python -m mq3d_tpu_torch.bench --reps 1 --frames {BENCH_FRAMES} "
+        f"({time.perf_counter() - t0:.1f} "
         f"s): {out[-1]}")
     checks = {"one line on stdout": len(out) == 1,
               "metric": (line["metric"], line["unit"]) == ("tsdf_frames_per_sec", "frames/s"),
@@ -2182,6 +2236,105 @@ def bench_entry_point() -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"bench entry point checks failed: {failed}")
+
+
+PROD_E2E_STAGES = ("convert_yuv_to_rgb", "convert_depth_to_linear", "reconstruct_scene")
+
+
+def _launch_line(text: str, prefix: str) -> dict:
+    """The launch counts a tool printed as `<prefix> {...}`."""
+    line = next(x for x in text.splitlines() if x.startswith(prefix))
+    return json.loads(line[len(prefix):].strip().replace("'", '"'))
+
+
+def prod_e2e(work: Path, smi: str) -> dict:
+    """Phase 13, first part: `python -m mq3d_tpu_torch.tools.run_prod_e2e`
+    at its defaults in a fresh process.  Returns its launch counts."""
+    proj = work / "prod_e2e"
+    t0 = time.perf_counter()
+    proc = _run_module(["mq3d_tpu_torch.tools.run_prod_e2e", "--project", str(proj)],
+                       timeout=1000)
+    secs = time.perf_counter() - t0
+    out, err = proc.stdout, proc.stderr
+    for msg in out.splitlines():
+        if msg.startswith("[prod-e2e]"):
+            log(f"[phase 13] {msg}")
+    launches = _launch_line(err, "[prod-e2e] kernel launches")
+    runtime = (proj / "pipeline_runtime.txt").read_text()
+    stages = dict(re.findall(r"^  (\w+): (\S+)$", runtime, re.M))
+    substeps = substeps_of(out)
+    log(f"[phase 13] run_prod_e2e in {secs:.1f} s (subprocess); stages {stages}; launches "
+        f"{launches}")
+    log("[phase 13] substep seconds (summed over repeats): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in substeps.items()))
+    # The bare box room through the shipped config: its bare parallel
+    # walls let the fragments slide against each other in the scene ICP
+    # (the JAX package's algorithm too), so its run is checked and its
+    # accuracy only printed.
+    rc = PipelineConfigs.parse_config_yml(SHIPPED_CONFIG).reconstruction
+    run_checks, accuracy = check_shipped_run("phase 13", proj, run_prod_e2e.scene_config(),
+                                             out, rc, "box room")
+    log(f"[phase 13] box room: run checks {run_checks}; accuracy (printed) {accuracy}")
+    recon = proj / "reconstruction"
+    aligned = [len(list((proj / f"{side}_color_aligned_depth").glob("*.npy")))
+               for side in ("left", "right")]
+    checks = {
+        "rc 0": proc.returncode == 0,
+        "colorless.ply, colorless_vbg.npz and color_mesh.ply written": all(
+            (recon / a).is_file() and (recon / a).stat().st_size > 0
+            for a in ("colorless.ply", "colorless_vbg.npz", "color_mesh.ply")),
+        "colour-aligned depth on both sides": min(aligned) > 0,
+        "every stage in pipeline_runtime.txt": set(PROD_E2E_STAGES) <= set(stages),
+        "[Substep] lines": len(substeps) > 0,
+        "K1 launched": launches.get("patch_lookup", 0) > 0,
+        "K2 launched": launches.get("i420_to_bgr", 0) > 0,
+        "the card's name and power limit printed": smi in err,
+        **{f"box room: {k}": v for k, v in run_checks.items()},
+    }
+    log(f"[phase 13] run_prod_e2e: colour-aligned depth maps {aligned}; checks {checks}")
+    shutil.rmtree(proj, ignore_errors=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"run_prod_e2e checks failed: {failed}")
+    return launches
+
+
+def stage_baselines_and_raycast() -> int:
+    """Phase 13, second part: bench_reference_stages --parity with cut reps
+    and bench_raycast on 4 views, each in a subprocess, with their gates.
+    Returns K1's launches of bench_raycast's volume build."""
+    t0 = time.perf_counter()
+    proc = _run_module(["mq3d_tpu_torch.tools.bench_reference_stages", "--parity",
+                        "--conf-reps", "3", "--icp-reps", "1"], timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for msg in lines[:-1]:
+        log(f"[phase 13] bench_reference_stages: {msg}")
+    st = json.loads(lines[-1])
+    log(f"[phase 13] bench_reference_stages --parity: {time.perf_counter() - t0:.1f} s")
+    conf, icp_res = st["confidence"], st["icp"]
+    t0 = time.perf_counter()
+    proc = _run_module(["mq3d_tpu_torch.tools.bench_raycast", "4"], timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for msg in lines[:-1]:
+        log(f"[phase 13] bench_raycast: {msg}")
+    rc = json.loads(lines[-1])
+    log(f"[phase 13] bench_raycast 4: {time.perf_counter() - t0:.1f} s; launches "
+        f"{rc['launches']}")
+    checks = {
+        "confidence valid counts equal on >= 99.9 %": conf["parity"]["valid_count_match"] >= 0.999,
+        "confidence p99 |dconf| <= 0.01": conf["parity"]["conf_abs_diff_p99"] <= 0.01,
+        "C++ ICP residual rotation < 0.01 deg": icp_res["residual_rotation_deg"] < 0.01,
+        "port ICP residual rotation < 0.01 deg": icp_res["port"]["residual_rotation_deg"] < 0.01,
+        "the port's stages on the card": conf["port_device"].startswith("cuda")
+            and icp_res["port"]["device"].startswith("cuda"),
+        "raycast median error < 2.5 mm": rc["accuracy"]["median_mm"] < 2.5,
+        "K1 launched building the raycast's volume": rc["launches"]["patch_lookup"] > 0,
+    }
+    log(f"[phase 13] stage baselines and raycast checks {checks}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"stage baseline / raycast checks failed: {failed}")
+    return rc["launches"]["patch_lookup"]
 
 
 def main() -> None:
@@ -2242,15 +2395,13 @@ def main() -> None:
         capture = session
 
         t0 = time.perf_counter()
-        # The issue's box room, whose bare parallel walls let the fragment
-        # ICP slide (the JAX package's too): its run is checked, its
-        # accuracy printed.  The furnished room is checked in full.
-        _, run_checks, _, _, _ = shipped_config_path(work, quest_scene(200), "box room")
+        # The furnished room, checked in full.  The bare box room's run of
+        # the shipped config is phase 13's run_prod_e2e.
         furnished = quest_scene(200, ROOM_CLUTTER)
         k1, furnished_run, accuracy, session, rc = shipped_config_path(
             work, furnished, "furnished room")
-        failed = [f"box room: {k}" for k, ok in run_checks.items() if not ok] + [
-            f"furnished room: {k}" for k, ok in dict(furnished_run, **accuracy).items() if not ok]
+        failed = [f"furnished room: {k}"
+                  for k, ok in dict(furnished_run, **accuracy).items() if not ok]
         if failed:
             raise AssertionError(f"shipped config checks failed: {failed}")
         kernels[0]["launches_fragment_path"] = k1
@@ -2282,6 +2433,13 @@ def main() -> None:
         t0 = time.perf_counter()
         bench_entry_point()
         log(f"[phase 12] done in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        launches = prod_e2e(work, smi)
+        kernels[0]["launches_phase13"] = {"run_prod_e2e": launches["patch_lookup"],
+                                          "bench_raycast": stage_baselines_and_raycast()}
+        kernels[1]["launches_phase13"] = {"run_prod_e2e": launches["i420_to_bgr"]}
+        log(f"[phase 13] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -5,8 +5,8 @@ standard library and numpy only (no pandas, no cv2): raw NDC depth +
 descriptor CSVs, I420 YUV frames + format/characteristics JSONs and the HMD
 pose CSV, rendered analytically from inside an axis-aligned box, in the
 reference's on-disk layout.  Same scene, poses and conventions as the JAX
-build's writer; its BGR -> I420 step is a numpy BT.601 conversion and is
-not byte-identical to cv2's (parity tests use the JAX build's writer).
+build's writer, and the same bytes: its BGR -> I420 step is OpenCV's
+fixed point in numpy (cv2's bytes over every BGR triple).
 
 Conventions: ground-truth camera poses are authored in the OPEN3D frame and
 converted backward to the UNITY logging frame, exactly inverting what the
@@ -132,30 +132,35 @@ def render_box_depth(pose_cw_o3d, fx, fy, cx_flipped, cy, w, h, box_min, box_max
     """Analytic z-depth of the box interior seen from inside, and of the
     solid `clutter` boxes in it.  Pixel (u, v) maps to the camera ray
     ((u - cx')/fx, (v - cy)/fy, 1), cx' being the mirror-flipped principal
-    point the pipeline uses."""
+    point the pipeline uses.  One ray component at a time: each face and
+    slab test does per pixel the float64 operations it would do on whole
+    (h, w, 3) rays, so the bytes are the JAX writer's (faces) and the
+    same as before, a few times faster."""
     d_world = _camera_rays(fx, fy, cx_flipped, cy, w, h) @ pose_cw_o3d[:3, :3].T
+    d = [np.ascontiguousarray(d_world[..., a]) for a in range(3)]
     c = pose_cw_o3d[:3, 3]
     t_exit = np.full((h, w), np.inf)
-    for axis in range(3):
-        for bound in (box_min[axis], box_max[axis]):
-            denom = d_world[..., axis]
-            with np.errstate(divide="ignore", invalid="ignore"):
-                t = (bound - c[axis]) / denom
-            t = np.where(np.isfinite(t) & (t > 1e-9), t, np.inf)
-            t_safe = np.where(np.isfinite(t), t, 0.0)
-            p = c + t_safe[..., None] * d_world
-            on_face = np.ones((h, w), dtype=bool)
-            for a in (a for a in range(3) if a != axis):
-                on_face &= (p[..., a] >= box_min[a] - 1e-9) & (p[..., a] <= box_max[a] + 1e-9)
-            t_exit = np.minimum(t_exit, np.where(on_face, t, np.inf))
-    for lo, hi in clutter:  # slab test: the entry point of each solid box
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t0 = (np.asarray(lo) - c) / d_world
-            t1 = (np.asarray(hi) - c) / d_world
-        t_in = np.nanmax(np.minimum(t0, t1), axis=-1)
-        t_out = np.nanmin(np.maximum(t0, t1), axis=-1)
-        hit = (t_in <= t_out) & (t_in > 1e-9)
-        t_exit = np.minimum(t_exit, np.where(hit, t_in, np.inf))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for axis in range(3):
+            for bound in (box_min[axis], box_max[axis]):
+                t = (bound - c[axis]) / d[axis]
+                t = np.where(np.isfinite(t) & (t > 1e-9), t, np.inf)
+                t_safe = np.where(np.isfinite(t), t, 0.0)
+                on_face = np.ones((h, w), dtype=bool)
+                for a in (a for a in range(3) if a != axis):
+                    p = c[a] + t_safe * d[a]
+                    on_face &= (p >= box_min[a] - 1e-9) & (p <= box_max[a] + 1e-9)
+                t_exit = np.minimum(t_exit, np.where(on_face, t, np.inf))
+        for lo, hi in clutter:  # slab test: the entry point of each solid box
+            t_in = t_out = None
+            for a in range(3):  # fmax / fmin skip a NaN slab as nanmax does
+                t0 = (lo[a] - c[a]) / d[a]
+                t1 = (hi[a] - c[a]) / d[a]
+                near, far = np.minimum(t0, t1), np.maximum(t0, t1)
+                t_in = near if t_in is None else np.fmax(t_in, near)
+                t_out = far if t_out is None else np.fmin(t_out, far)
+            hit = (t_in <= t_out) & (t_in > 1e-9)
+            t_exit = np.minimum(t_exit, np.where(hit, t_in, np.inf))
     return t_exit  # z-depth == ray parameter because the ray's z is 1
 
 
@@ -168,21 +173,31 @@ def encode_ndc(z: np.ndarray, near: float, far: float) -> np.ndarray:
     return np.where(np.isfinite(d), d, 0.0).astype(np.float32)
 
 
+# OpenCV's BGR -> I420 fixed point (cvtColor COLOR_BGR2YUV_I420: BT.601
+# studio swing, 20 fractional bits, rounded by adding half a unit).
+_I420_SHIFT = 20
+_I420_Y = (269484, 528482, 102760)  # (r, g, b)
+_I420_U = (-155188, -305135, 460324)
+_I420_V = (460324, -385875, -74448)
+
+
 def bgr_to_i420(bgr: np.ndarray) -> np.ndarray:
-    """(H, W, 3) uint8 BGR -> planar I420 bytes (H*3/2, W): BT.601
-    studio-swing luma at full resolution, chroma averaged over 2x2 quads."""
-    f = bgr.astype(np.float64)
-    b, g, r = f[..., 0], f[..., 1], f[..., 2]
-    y = 16.0 + 0.256788 * r + 0.504129 * g + 0.097906 * b
-    u = 128.0 - 0.148223 * r - 0.290993 * g + 0.439216 * b
-    v = 128.0 + 0.439216 * r - 0.367788 * g - 0.071427 * b
-    h, w = y.shape
+    """(H, W, 3) uint8 BGR -> planar I420 bytes (H*3/2, W), OpenCV's bytes:
+    luma at full resolution, chroma from the top-left pixel of each 2x2
+    quad, in OpenCV's fixed point (equal to cv2.cvtColor(bgr,
+    COLOR_BGR2YUV_I420) over every BGR triple)."""
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    h, w = b.shape
+    half = 1 << (_I420_SHIFT - 1)
 
-    def quad_mean(p):
-        return p.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+    def plane(coef, offset, rr, gg, bb):
+        val = (coef[0] * rr + coef[1] * gg + coef[2] * bb + half
+               + (offset << _I420_SHIFT)) >> _I420_SHIFT
+        return np.clip(val, 0, 255).astype(np.uint8)
 
-    planes = [np.clip(np.rint(p), 0, 255).astype(np.uint8)
-              for p in (y, quad_mean(u), quad_mean(v))]
+    quad = [c[0::2, 0::2] for c in (r, g, b)]
+    planes = [plane(_I420_Y, 16, r, g, b), plane(_I420_U, 128, *quad),
+              plane(_I420_V, 128, *quad)]
     return np.concatenate([p.ravel() for p in planes]).reshape(h * 3 // 2, w)
 
 
@@ -211,7 +226,8 @@ def write_synthetic_project(project_dir: Path, cfg: SyntheticSceneConfig | None 
                             workers: int = 1
                             ) -> Tuple[Path, SyntheticSceneConfig, Transforms]:
     """Create the full fake project dir.  Returns (dir, cfg, gt OPEN3D poses).
-    `workers` threads render the colour frames (numpy releases the lock)."""
+    `workers` threads render the depth and colour frames (numpy releases
+    the lock)."""
     cfg = cfg or SyntheticSceneConfig()
     project_dir = Path(project_dir)
     project_dir.mkdir(parents=True, exist_ok=True)
@@ -223,12 +239,15 @@ def write_synthetic_project(project_dir: Path, cfg: SyntheticSceneConfig | None 
 
     # ---- depth: raw NDC files + descriptor CSVs (same for both sides) ------
     dfx, dfy, dcx, dcy = intrinsics_from_cfg(cfg, cfg.depth_width, cfg.depth_height)
-    ndc_frames = [
-        encode_ndc(render_box_depth(poses_cw[i], dfx, dfy, cfg.depth_width - dcx, dcy,
-                                    cfg.depth_width, cfg.depth_height,
-                                    cfg.box_min, cfg.box_max, cfg.clutter), cfg.near, cfg.far)
-        for i in range(cfg.n_frames)
-    ]
+
+    def ndc_frame(i):
+        return encode_ndc(render_box_depth(poses_cw[i], dfx, dfy, cfg.depth_width - dcx, dcy,
+                                           cfg.depth_width, cfg.depth_height,
+                                           cfg.box_min, cfg.box_max, cfg.clutter),
+                          cfg.near, cfg.far)
+
+    with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
+        ndc_frames = list(pool.map(ndc_frame, range(cfg.n_frames)))
     header = ["timestamp_ms", "width", "height", "near_z", "far_z",
               "fov_left_angle_tangent", "fov_right_angle_tangent",
               "fov_top_angle_tangent", "fov_down_angle_tangent",
@@ -241,7 +260,7 @@ def write_synthetic_project(project_dir: Path, cfg: SyntheticSceneConfig | None 
         depth_dir.mkdir(exist_ok=True)
         with open(project_dir / f"{side.value}_depth_descriptors.csv", "w",
                   newline="") as f:
-            out = csv.writer(f)
+            out = csv.writer(f, lineterminator="\n")  # pandas' to_csv
             out.writerow(header)
             for i, ts in enumerate(timestamps):
                 ndc_frames[i].astype("<f4").tofile(depth_dir / f"{ts}.raw")

@@ -7,6 +7,7 @@ system refuses those names, every module of mq3d_tpu_torch and chip_smoke
 must import.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -166,3 +167,40 @@ def test_reference_tools_build_from_the_port_sources():
     assert bench_reference_raycast.SOURCE == REPO / "mq3d_tpu_torch/csrc/ref_raycast_cpu.cpp"
     for mod in (bench_reference_cpu, bench_reference_raycast):
         assert "native/" not in Path(mod.__file__).read_text(), mod.__name__
+
+
+SLICE11_MODULES = ["mq3d_tpu_torch.tools.bench_reference_stages",
+                   "mq3d_tpu_torch.tools.run_prod_e2e", "mq3d_tpu_torch.tools.bench_raycast"]
+
+
+@pytest.mark.parametrize("module", SLICE11_MODULES)
+def test_slice11_tools_import_under_the_guard(module):
+    """The stage baselines, the production-scale run and the raycast
+    micro-benchmark, each alone in a fresh interpreter under the guard:
+    neither jax nor mq3d_tpu; importing builds no reference library and
+    sets no environment variable."""
+    walk = _SCRIPT[_SCRIPT.index("names = "):_SCRIPT.index("for name in names")]
+    script = _SCRIPT.replace(walk, f"names = [{module!r}]\n") + (
+        "import os\n"
+        "from mq3d_tpu_torch.tools import bench_reference_stages\n"
+        "assert bench_reference_stages._conf_lib.lib is None\n"
+        "assert bench_reference_stages._icp_lib.lib is None\n"
+        "assert 'MQ3D_SUBSTEP_TIMING' not in os.environ\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300, cwd=REPO,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "MQ3D_SUBSTEP_TIMING"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "1"
+
+
+def test_stage_baselines_build_from_the_port_sources():
+    """The stage baselines compile the port's own copies of the C++, and
+    no slice-11 tool names the JAX build's native/ directory."""
+    from mq3d_tpu_torch.tools import bench_reference_stages
+
+    assert bench_reference_stages.CONF_SOURCE == REPO / "mq3d_tpu_torch/csrc/ref_confidence_cpu.cpp"
+    assert bench_reference_stages.ICP_SOURCE == REPO / "mq3d_tpu_torch/csrc/ref_icp_cpu.cpp"
+    for module in SLICE11_MODULES:
+        path = REPO / (module.replace(".", "/") + ".py")
+        assert "native/" not in path.read_text(), module
