@@ -12,6 +12,12 @@ pose transforms are its fused multiply-add chains (`ops.tsdf._apply_pose`)
 and the bilinear blend one more chain, so the counts equal the JAX
 package's on nearly every pixel (tests/test_torch_confidence.py states the
 share).
+
+Under a profiler a call is the range "confidence.call", its phases the
+ranges "confidence.inputs", ".project", ".sample", ".error" and ".count"
+in that order, and each `_fma` inside them the range "fma"
+(`utils.log.span`); step 1's read-back and writes are "confidence.readback"
+and "confidence.save".
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from mq3d_tpu_torch.models.camera import ConfidenceMap
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.models.transforms import CoordinateSystem
 from mq3d_tpu_torch.ops.tsdf import _apply_pose, _fma, _norm3, _to_i32
+from mq3d_tpu_torch.utils.log import span
 
 
 def _bilinear_depth(depth, u, v, depth_max: float):
@@ -74,30 +81,32 @@ def _pair_error(ref_depth, tgt_depth, K_ref, K_tgt, T_ref_cw, T_tgt_wc, T_tgt_cw
     fx_r, fy_r, cx_r, cy_r = cam(K_ref, 0, 0), cam(K_ref, 1, 1), cam(K_ref, 0, 2), cam(K_ref, 1, 2)
     fx_t, fy_t, cx_t, cy_t = cam(K_tgt, 0, 0), cam(K_tgt, 1, 1), cam(K_tgt, 0, 2), cam(K_tgt, 1, 2)
 
-    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    z = ref_depth
-    px_valid = (z > 0) & (z <= depth_max)
-
     # Reference pixel -> world -> target camera.
-    x = (u - cx_r) * z / fx_r
-    y = (v - cy_r) * z / fy_r
-    p_world = _apply_pose(torch.stack([x, y, z], dim=-1), pose(T_ref_cw))
-    p_tgt = _apply_pose(p_world, pose(T_tgt_wc))
-    zt = p_tgt[..., 2]
-    proj_ok = px_valid & (zt > 0) & (zt <= depth_max)
-    zt_safe = torch.where(zt > 0, zt, torch.ones_like(zt))
-    ut = p_tgt[..., 0] * fx_t / zt_safe + cx_t
-    vt = p_tgt[..., 1] * fy_t / zt_safe + cy_t
+    with span("confidence.project"):
+        u = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+        v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        z = ref_depth
+        px_valid = (z > 0) & (z <= depth_max)
+        x = (u - cx_r) * z / fx_r
+        y = (v - cy_r) * z / fy_r
+        p_world = _apply_pose(torch.stack([x, y, z], dim=-1), pose(T_ref_cw))
+        p_tgt = _apply_pose(p_world, pose(T_tgt_wc))
+        zt = p_tgt[..., 2]
+        proj_ok = px_valid & (zt > 0) & (zt <= depth_max)
+        zt_safe = torch.where(zt > 0, zt, torch.ones_like(zt))
+        ut = p_tgt[..., 0] * fx_t / zt_safe + cx_t
+        vt = p_tgt[..., 1] * fy_t / zt_safe + cy_t
 
-    z_tgt, samp_ok = _bilinear_depth(tgt_depth, ut, vt, depth_max)
-    samp_ok &= z_tgt > 0
+    with span("confidence.sample"):
+        z_tgt, samp_ok = _bilinear_depth(tgt_depth, ut, vt, depth_max)
+        samp_ok &= z_tgt > 0
 
     # The sampled target depth back to world, and the distance.
-    xt = (ut - cx_t) * z_tgt / fx_t
-    yt = (vt - cy_t) * z_tgt / fy_t
-    q_world = _apply_pose(torch.stack([xt, yt, z_tgt], dim=-1), pose(T_tgt_cw))
-    err = _norm3(p_world - q_world)
+    with span("confidence.error"):
+        xt = (ut - cx_t) * z_tgt / fx_t
+        yt = (vt - cy_t) * z_tgt / fy_t
+        q_world = _apply_pose(torch.stack([xt, yt, z_tgt], dim=-1), pose(T_tgt_cw))
+        err = _norm3(p_world - q_world)
     return err, proj_ok & samp_ok
 
 
@@ -110,27 +119,30 @@ def confidence_for_refs(depth_stack, K, T_cw, T_wc, frame_valid, ref_indices,
     one device.  Each reference counts over the neighbours in
     [ref - window, ref + window] except itself.  Returns (confidence
     (B, H, W) float32, valid_count (B, H, W) int64)."""
-    n = depth_stack.shape[0]
-    dev = depth_stack.device
-    ref = ref_indices.long()
-    offsets = torch.cat([torch.arange(-window, 0), torch.arange(1, window + 1)]).to(dev)
-    tgt = ref[:, None] + offsets[None, :]  # (B, 2 * window)
-    in_range = (tgt >= 0) & (tgt < n)
-    tgt_c = tgt.clamp(0, n - 1)
+    with span("confidence.call"):
+        n = depth_stack.shape[0]
+        dev = depth_stack.device
+        with span("confidence.inputs"):
+            ref = ref_indices.long()
+            offsets = torch.cat([torch.arange(-window, 0), torch.arange(1, window + 1)]).to(dev)
+            tgt = ref[:, None] + offsets[None, :]  # (B, 2 * window)
+            in_range = (tgt >= 0) & (tgt < n)
+            tgt_c = tgt.clamp(0, n - 1)
+            inputs = (depth_stack[ref][:, None], depth_stack[tgt_c], K[ref][:, None], K[tgt_c],
+                      T_cw[ref][:, None], T_wc[tgt_c], T_cw[tgt_c])
 
-    err, ok = _pair_error(depth_stack[ref][:, None], depth_stack[tgt_c],
-                          K[ref][:, None], K[tgt_c], T_cw[ref][:, None], T_wc[tgt_c],
-                          T_cw[tgt_c], depth_max)
-    ok &= (in_range & frame_valid[tgt_c] & frame_valid[ref][:, None])[..., None, None]
-    consistent = ok & (err <= error_threshold)
-    # int64 counts, divided in float64: the JAX package's types (x64 mode),
-    # which its per-frame npz files store.
-    valid_count = ok.sum(dim=1)
-    n_consistent = consistent.sum(dim=1)
-    conf = torch.where(valid_count > 0,
-                       n_consistent.double() / valid_count.clamp(min=1).double(),
-                       torch.zeros((), dtype=torch.float64, device=dev)).float()
-    return conf, valid_count
+        err, ok = _pair_error(*inputs, depth_max)
+        with span("confidence.count"):
+            ok &= (in_range & frame_valid[tgt_c] & frame_valid[ref][:, None])[..., None, None]
+            consistent = ok & (err <= error_threshold)
+            # int64 counts, divided in float64: the JAX package's types (x64
+            # mode), which its per-frame npz files store.
+            valid_count = ok.sum(dim=1)
+            n_consistent = consistent.sum(dim=1)
+            conf = torch.where(valid_count > 0,
+                               n_consistent.double() / valid_count.clamp(min=1).double(),
+                               torch.zeros((), dtype=torch.float64, device=dev)).float()
+        return conf, valid_count
 
 
 def estimate_depth_confidences(depth_data_io: DepthDataIO,
@@ -196,16 +208,19 @@ def estimate_depth_confidences(depth_data_io: DepthDataIO,
                 depth_max=float(config.depth_max),
                 error_threshold=float(config.error_threshold),
                 window=int(config.target_frame_range))
-            conf = conf.cpu().numpy()
-            cnt = cnt.cpu().numpy()
-            for bi, i in enumerate(batch):
-                if not frame_valid[i]:
-                    continue
-                depth_data_io.save_confidence_map(
-                    side, int(dataset.timestamps[i]),
-                    ConfidenceMap(confidence_map=conf[bi], valid_count=cnt[bi]))
-                if writer is not None:
-                    writer.write(int(pack_row[i]), conf[bi], cnt[bi].astype(np.int32))
+            with span("confidence.readback"):
+                conf = conf.cpu().numpy()
+                cnt = cnt.cpu().numpy()
+            with span("confidence.save"):
+                for bi, i in enumerate(batch):
+                    if not frame_valid[i]:
+                        continue
+                    depth_data_io.save_confidence_map(
+                        side, int(dataset.timestamps[i]),
+                        ConfidenceMap(confidence_map=conf[bi], valid_count=cnt[bi]))
+                    if writer is not None:
+                        writer.write(int(pack_row[i]), conf[bi], cnt[bi].astype(np.int32))
         if writer is not None:
             # After the per-frame saves, each of which removes the pack.
-            writer.finalize()
+            with span("confidence.save"):
+                writer.finalize()

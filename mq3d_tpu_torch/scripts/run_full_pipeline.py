@@ -12,7 +12,8 @@ pipeline_runtime.txt summary in the session directory.
 --export-fbx also writes reconstruction/color_mesh.fbx (stage export_fbx).
 --profile DIR wraps the run in torch.profiler (CPU activity, and CUDA on
 the card) and writes DIR/pipeline_trace.json, a Chrome trace in which the
-stage and substep ranges of utils/log.py appear by name.
+ranges of utils/log.py's `span` appear by name: the stages, the substeps,
+step 1's phases and each `_fma` (README.md lists them).
 
 pipeline_runtime.txt also counts the hand-written kernels' launches of the
 run (kernel_launches: patch_lookup=... i420_to_bgr=... gather=...).
