@@ -13,14 +13,18 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      scalar paths), with times and byte bounds; K3 in both out-of-range
      modes at every table size of the gather probe and at 0.125 MB, on
      in-range and out-of-range indices; the timer's floor (an empty
-     launch); bgr_to_gray on the card against the CPU over all 2^24 BGR
-     triples; the gather probe's seven calls
+     launch); K4 (`_fma`) as bits against its plain version on tie,
+     near-tie and special-value triples and at step 1's full-size and a
+     Phase B tile's layouts, timed there with its byte bound; bgr_to_gray
+     on the card against the CPU over all 2^24 BGR triples; the gather
+     probe's seven calls
      (mq3d_tpu_torch.tools.probe_gather, K3's own path, counts reset just
      before and read just after)
   3. the main path: a synthetic capture at Quest scale through
      run_full_pipeline with the production TSDF settings (launch counts
-     reset just before, read just after); K1 timed again on one of its
-     integration tiles, saved during the run
+     reset just before, read just after; every `_fma` call on the card
+     counted, and each must have launched K4: share 1.0); K1 timed again on
+     one of its integration tiles, saved during the run
   4. the same depth integrated again with the plain lookup: the volume must
      be identical to the kernel path's
   5. a small capture through run_full_pipeline on the CPU and on the card
@@ -175,6 +179,7 @@ from mq3d_tpu_torch.config.configs import (
 )
 from mq3d_tpu_torch.dataio.data_io import DataIO
 from mq3d_tpu_torch.dataio.ply import TriangleMesh, read_ply, write_ply_mesh
+from mq3d_tpu_torch.eval import metrics as eval_metrics
 from mq3d_tpu_torch.eval.metrics import nearest_distances
 from mq3d_tpu_torch.eval.quality import CSV_FIELDS as QUALITY_CSV_FIELDS
 from mq3d_tpu_torch.export.colmap import qvec2rotmat, read_cameras_binary, read_images_binary
@@ -184,6 +189,7 @@ from mq3d_tpu_torch.kernels import _build
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.models.transforms import CoordinateSystem
 from mq3d_tpu_torch.ops import icp, odometry, posegraph, raycast
+from mq3d_tpu_torch.ops import fma as fma_ops
 from mq3d_tpu_torch.ops import tsdf as tsdf_ops
 from mq3d_tpu_torch.ops.tsdf import TSDFVolume
 from mq3d_tpu_torch.ops.gather import MODES as gather_modes
@@ -236,6 +242,7 @@ from mq3d_tpu_torch.scripts import (
     visualize_camera_trajectories,
 )
 from mq3d_tpu_torch.scripts import run_full_pipeline as pipeline_cli
+from mq3d_tpu_torch.testing.fma_cases import compare_bits, special_triples, tie_triples
 from mq3d_tpu_torch.testing.synthetic import (
     ROOM_CLUTTER,
     SyntheticSceneConfig,
@@ -431,19 +438,101 @@ def check_k3() -> dict:
     return row
 
 
-def time_fma(rng) -> None:
-    """`ops.tsdf._fma` (correctly rounded) at an integration tile's shape
-    (512 pairs x 16^3 voxels), against the float64-then-float32 form it
-    replaced, which rounds twice, for its cost only."""
-    a, b, c = (torch.from_numpy(rng.standard_normal((512, 4096), dtype=np.float32)).cuda()
-               for _ in range(3))
-    got = tsdf_ops._fma(a, b, c)
-    if not torch.equal(got.cpu(), tsdf_ops._fma(a.cpu(), b.cpu(), c.cpu())):
-        raise AssertionError("_fma differs between the card and the CPU")
-    ms = time_ms(lambda: tsdf_ops._fma(a, b, c))
-    old_ms = time_ms(lambda: (a.double() * b.double() + c.double()).float())
-    log(f"[phase 2] _fma at 512x4096: card == CPU; {ms:.4f} ms, the double-rounded "
-        f"form {old_ms:.4f} ms")
+def _fma_bytes(a, b, c) -> int:
+    """K4's bytes: each operand's distinct elements read once, 4 bytes an
+    output element written."""
+    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    sizes, strides = fma_ops.merge_layout(
+        shape, [fma_ops.broadcast_strides(t, shape) for t in (a, b, c)])
+    distinct = sum(int(np.prod([n for n, st in zip(sizes, s) if st != 0])) for s in strides)
+    return 4 * (distinct + int(np.prod(shape)))
+
+
+def check_k4(rng) -> dict:
+    """K4 (`ops.tsdf._fma` on the card) against its plain version, as bits
+    (NaN as NaN), on tie, near-tie and special-value triples and at the main
+    path's layouts, each launching K4 once; timed with its byte bound and
+    the plain version at step 1's full-size shape (16 references x 20
+    neighbours x 288 x 320, a stride-3 point component against a broadcast
+    pose scalar) and at a Phase B tile (512 pairs x 16^3 voxels)."""
+    err = 0.0
+
+    def same_bits(got, want, what):
+        nonlocal err
+        equal, case_err = compare_bits(got, want)
+        err = max(err, case_err)
+        if not equal:
+            raise AssertionError(f"K4 fma differs from its plain version: {what}, "
+                                 f"by up to {case_err}")
+
+    def kernel(a, b, c):
+        before = _build.launch_counts()["fma"]
+        out = tsdf_ops._fma(a, b, c)
+        torch.cuda.synchronize()
+        if _build.launch_counts()["fma"] != before + 1:
+            raise AssertionError("_fma on the card did not launch K4 once")
+        return out
+
+    for name, arrays in (("ties", tie_triples(4099)), ("specials", special_triples(1 << 18))):
+        a, b, c = (torch.from_numpy(x).cuda() for x in arrays)
+        same_bits(kernel(a, b, c), tsdf_ops._fma_plain(a, b, c), name)
+        same_bits(kernel(a[1:], b[1:], c[1:]), tsdf_ops._fma_plain(a[1:], b[1:], c[1:]),
+                  f"{name}, unaligned")
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+
+    p = randn(16, 1, 288, 320, 3)
+    T = randn(16, 20, 1, 1, 4, 4)
+    full = (p[..., 1], T[..., 0, 1], randn(16, 20, 288, 320))
+    q = randn(512, 4096, 3)
+    tile = (randn(512, 1), q[..., 2], randn(512, 4096))
+    rows, plain_rows = [], []
+    for what, args in (("step 1, 16x20x288x320, pose scalar", full),
+                       ("Phase B tile, 512x4096", tile)):
+        shape = torch.broadcast_shapes(*(t.shape for t in args))
+        dense = [t.expand(shape).contiguous() for t in args]
+        same_bits(kernel(*args), tsdf_ops._fma_plain(*dense), what)
+        ms = time_ms(lambda: tsdf_ops._fma(*args))
+        plain_ms = time_ms(lambda: tsdf_ops._fma_plain(*args))
+        nbytes = _fma_bytes(*args)
+        b_ms, b_by = bound(nbytes, 2 * int(np.prod(shape)))
+        log(f"[phase 2] K4 fma at {what}: equal as bits; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+        rows.append({"shape": what, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+    log(f"[phase 2] K4 fma on ties, near-ties and special values (subnormal, huge, inf, "
+        f"NaN, signed zeros), aligned and unaligned, and at the two shapes: equal as bits, "
+        f"largest difference where both are finite {err}")
+    return {"name": "fma", "route": "cuda", "source": "mq3d_tpu_torch/csrc/fma.cu",
+            "replaces": "XLA's fused multiply-add, no Pallas kernel",
+            "max_abs_err": err, "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+            "library_ms": None, "shapes": rows}
+
+
+_FMA_MODULES = (tsdf_ops, confidence, icp, raycast, eval_metrics)
+
+
+@contextlib.contextmanager
+def counting_fma_calls(counts: dict):
+    """Count each `_fma` call whose operands lie on the card and whose
+    result is not empty (counts["card_calls"]; an empty one launches
+    nothing), in every module that calls it."""
+    fma = tsdf_ops._fma
+
+    def counted(a, b, c):
+        if a.is_cuda and np.prod(fma_ops.broadcast_shape(a.shape, b.shape, c.shape)) > 0:
+            counts["card_calls"] = counts.get("card_calls", 0) + 1
+        return fma(a, b, c)
+
+    for m in _FMA_MODULES:
+        m._fma = counted
+    try:
+        yield counts
+    finally:
+        for m in _FMA_MODULES:
+            m._fma = fma
 
 
 def probe_path() -> int:
@@ -512,8 +601,9 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
     _build.reset_launch_counts()
     tsdf_ops.reset_lookup_tile_counts()
     t0 = time.perf_counter()
-    run = run_full_pipeline(session, configs, device="cuda")
-    torch.cuda.synchronize()
+    with counting_fma_calls({}) as fma_calls:
+        run = run_full_pipeline(session, configs, device="cuda")
+        torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = _build.launch_counts()
     tiles = tsdf_ops.lookup_tile_counts()
@@ -536,6 +626,9 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
         f"wall distance median {np.median(dist):.5f} m p99 "
         f"{np.quantile(dist, 0.99):.5f} m; launches {launches}")
     n_tiles = tiles["patch"] + tiles["over"]
+    fma_share = launches["fma"] / max(fma_calls.get("card_calls", 0), 1)
+    log(f"[phase 3] K4: {launches['fma']} launches for {fma_calls.get('card_calls', 0)} "
+        f"_fma calls on the card, share {fma_share:.4f}")
     log(f"[phase 3] integration tiles: {tiles['patch']} through K1 (patch), "
         f"{tiles['over']} through the flat gather (a voxel outside its patch); "
         f"K1 share {tiles['patch'] / max(n_tiles, 1):.4f}")
@@ -552,6 +645,8 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
         "K1 launched": launches["patch_lookup"] > 0,
         "one K1 launch per patch tile": launches["patch_lookup"] == tiles["patch"],
         "K2 launched": launches["i420_to_bgr"] > 0,
+        "every _fma on the card launched K4":
+            launches["fma"] > 0 and launches["fma"] == fma_calls.get("card_calls"),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -2363,9 +2458,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    kernels = [check_k1(rng), check_k2(rng), check_k3()]
+    kernels = [check_k1(rng), check_k2(rng), check_k3(), check_k4(rng)]
     check_gray()
-    time_fma(rng)
     kernels[2]["launches"] = probe_path()
     log(f"[phase 2] done in {time.perf_counter() - t0:.1f} s")
 
@@ -2377,6 +2471,7 @@ def main() -> None:
         log(f"[phase 3] done in {time.perf_counter() - t0:.1f} s")
         for k in kernels[:2]:
             k["launches"] = launches[k["name"]]
+        kernels[3]["launches"] = launches["fma"]
 
         t0 = time.perf_counter()
         plain_path(session, configs, vol)

@@ -27,6 +27,11 @@ load cached once per process (``load_typed``, ``LazyLibrary``).
 Launch counts: each wrapper calls ``count_launch(name)`` where it launches
 its kernel and nowhere else, so a run can show that its main path went
 through the kernels (``reset_launch_counts`` / ``launch_counts``).
+
+``launch_record(name)`` wraps a ctypes launch in an operator-scope profiler
+record, as PyTorch's own operators are: torch.profiler then links the
+kernel to it, and through it to the program's spans around the call (a
+launch outside every operator is linked to nothing).
 """
 
 from __future__ import annotations
@@ -50,9 +55,10 @@ NVCC_FLAGS = (
 )
 
 # C entry points: name -> (restype, argtypes); each returns a cudaError_t.
-# P = pointer, I = int.
+# P = pointer, I = int, L = pointer to long long.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # (patch, vi, ui, out, TP, PS, V, stream)
     "mq3d_patch_lookup": (_I, (_P, _P, _P, _P, _I, _I, _I, _P)),
@@ -60,11 +66,21 @@ _SIGNATURES = {
     "mq3d_i420_to_bgr": (_I, (_P, _P, _P, _P, _I, _I, _I, _P)),
     # (table, n, idx, out, m, mode, stream)
     "mq3d_gather": (_I, (_P, _I, _P, _P, ctypes.c_longlong, _I, _P)),
+    # (a, b, c, out, ndim, sizes, strides, stream)
+    "mq3d_fma": (_I, (_P, _P, _P, _P, _I, _L, _L, _P)),
 }
 
 _last_build_seconds: Optional[float] = None
 _last_build_report: str = ""
-_launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}
+_launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0, "fma": 0}
+
+
+def launch_record(name: str):
+    """A context manager: the operator-scope profiler record `name`
+    (torch's RecordFunctionFast, under 1 us without a profiler)."""
+    import torch
+
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def count_launch(name: str) -> None:

@@ -21,11 +21,13 @@ Phase A, Phase B and extraction are plain PyTorch here; the depth fetch of
 
 Bit-exactness with the JAX build on the CPU.  XLA's CPU compiler contracts
 `a*b + c` into a fused multiply-add, so the reference's projection and
-merge are FMA chains.  `_fma` reproduces them exactly: the float32 product
-is exact in float64, and the float64 sum is rounded to odd before it is
-rounded to float32, which gives the singly rounded fused result.  The same
-code runs on the card, so the port gives one answer on both devices; there
-the float64 steps cost extra elementwise launches (PERF.md).
+merge are FMA chains.  `_fma` reproduces them exactly.  On the CPU its plain
+version `_fma_plain` emulates the single rounding: the float32 product is
+exact in float64, and the float64 sum is rounded to odd before it is
+rounded to float32, which gives the singly rounded fused result.  On the
+card it launches K4 (csrc/fma.cu, ops/fma.py), the hardware's correctly
+rounded fused multiply-add in one pass, so the port gives one answer on
+both devices.
 Divisions never take a Python scalar divisor: CUDA PyTorch turns x / s into
 x * (1/s), which is not the correctly rounded quotient.
 
@@ -46,6 +48,7 @@ from scipy.linalg import blas, lapack
 
 from mq3d_tpu_torch.dataio.ply import PointCloud, TriangleMesh
 from mq3d_tpu_torch.device import resolve_device
+from mq3d_tpu_torch.ops.fma import check_operands, fma_cuda
 from mq3d_tpu_torch.ops.mc_tables import CORNERS, build_tables, edge_owner
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.utils.log import span, substep
@@ -182,24 +185,39 @@ def camera_to_world(extrinsics_wc: np.ndarray) -> np.ndarray:
     return out
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c, correctly rounded, as XLA's fused multiply-add
-    computes it (see module doc).
+def _fma_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c, correctly rounded, in plain PyTorch: the CPU path of
+    `_fma`, and its kernel's reference on the card.
 
     The float32 product is exact in float64.  The float64 sum s = p + c is
     rounded to odd: when its TwoSum error e is non-zero and the last
     mantissa bit of s is 0, s steps one float64 ulp toward e.  A value
     rounded to odd with 53 >= 24 + 2 bits rounds to float32 as the exact
     sum would, so the result is the singly rounded one on every device.
-    Where s is inf or NaN, e is NaN and s is kept.  Under a profiler its
-    operations sit in a range named "fma"."""
+    Where s is inf or NaN, e is NaN and s is kept.  Every operand is made
+    float64 itself: by PyTorch's type promotion a float64 0-d `a` times a
+    float32 `b` with dimensions would be a float32 product."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bp = s - p
+    e = (p - (s - bp)).add_(c - bp)
+    step = (e.abs() > 0).logical_and_((s.view(torch.int64) & 1) == 0)
+    return torch.where(step, torch.nextafter(s, e * math.inf), s).float()
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 a*b + c, correctly rounded, as XLA's fused multiply-add
+    computes it (see module doc): CUDA tensors launch K4
+    (`ops.fma.fma_cuda`), CPU tensors take `_fma_plain`.
+
+    Operands are float32 tensors on one device, broadcasting
+    (`ops.fma.check_operands`); anything else raises, a Python scalar too.
+    Under a profiler the call sits in a range named "fma"."""
     with span("fma"):
-        p = a.double() * b
-        s = p + c
-        bp = s - p
-        e = (p - (s - bp)).add_(c - bp)
-        step = (e.abs() > 0).logical_and_((s.view(torch.int64) & 1) == 0)
-        return torch.where(step, torch.nextafter(s, e * math.inf), s).float()
+        check_operands(a, b, c)
+        if a.device.type == "cuda":
+            return fma_cuda(a, b, c)
+        return _fma_plain(a, b, c)
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:

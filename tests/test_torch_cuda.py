@@ -12,9 +12,14 @@ its scalar indices (V % 4 != 0 or unaligned rows) and its one-buffer ring
 48 KB of it at W=8208) and its scalar strips (W % 16 != 0, rows too wide
 to stage at W=38752, or unaligned planes); K3 at tables that fit shared
 memory, the L2 or neither, in both out-of-range modes, with vector and
-scalar indices.
+scalar indices; K4 on its vector path (contiguous or scalar operands,
+16-byte aligned) and its strided path with 32-bit indices and with 64-bit
+ones (an output past 2^31 elements, an operand reaching past 2^31), on
+ties, near-ties and special values, and step 1 with `_fma` on the card
+against the same call with `_fma` pointed at its plain version.
 
-Tolerance: exact (K1 and K3 are gathers, K2 integer arithmetic).
+Tolerance: exact (K1 and K3 are gathers, K2 integer arithmetic, K4 one
+correctly rounded operation, compared as bits, NaN as NaN).
 """
 
 import numpy as np
@@ -22,9 +27,12 @@ import pytest
 import torch
 
 from mq3d_tpu_torch.kernels import _build
+from mq3d_tpu_torch.ops import tsdf
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.yuv import yuv420_to_8uc3, yuv420_to_bgr
+from mq3d_tpu_torch.recon import confidence
+from mq3d_tpu_torch.testing.fma_cases import compare_bits, special_triples, tie_triples
 
 
 @pytest.fixture
@@ -171,7 +179,196 @@ def test_empty_inputs_launch_nothing(cuda_device):
     assert yuv420_to_bgr(y, uv, uv).shape == (0, 4, 4, 3)
     table = torch.zeros(16, dtype=torch.float32, device=cuda_device)
     assert gather(table, torch.zeros(0, dtype=torch.int32, device=cuda_device)).shape == (0,)
-    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}
+    empty = torch.zeros((3, 0), dtype=torch.float32, device=cuda_device)
+    assert tsdf._fma(empty, table[:1], table[0]).shape == (3, 0)
+    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0,
+                                      "fma": 0}
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Equal as bits where `want` is not NaN (so -0.0 is not +0.0), NaN where
+    it is."""
+    equal, err = compare_bits(got.cpu(), want.cpu())
+    assert equal, f"differs from the plain version, by up to {err}"
+
+
+def _plain(a, b, c):
+    """The plain version on materialised operands of the broadcast shape."""
+    return tsdf._fma_plain(*(t.expand(torch.broadcast_shapes(a.shape, b.shape, c.shape))
+                             .contiguous() for t in (a, b, c)))
+
+
+def _fma_kernel(a, b, c):
+    """tsdf._fma on the card, checked to launch K4 once."""
+    before = _build.launch_counts()["fma"]
+    out = tsdf._fma(a, b, c)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fma"] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("ties", 4099), ("specials", (1 << 18) + 3),
+                                    ("random", 1 << 20)])
+def test_k4_kernel_matches_plain_on_hard_values(cuda_device, kind, n):
+    """Ties, near-ties, subnormal, huge, infinite, NaN and signed-zero
+    operands; n % 4 != 0 sends the last elements through the vector path's
+    tail."""
+    if kind == "ties":
+        arrays = tie_triples(n)
+    elif kind == "specials":
+        arrays = special_triples(n)
+    else:
+        rng = np.random.default_rng(3)
+        arrays = [(rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)).astype(np.float32)
+                  for _ in range(3)]
+    a, b, c = (torch.from_numpy(x).to(cuda_device) for x in arrays)
+    got = _fma_kernel(a, b, c)
+    _same_bits(got, tsdf._fma_plain(a, b, c))
+    _same_bits(got, tsdf._fma_plain(a.cpu(), b.cpu(), c.cpu()))
+    if kind == "specials":  # both strided paths too, on the same values
+        _same_bits(_fma_kernel(a[1:], b[1:], c[1:]), tsdf._fma_plain(a[1:], b[1:], c[1:]))
+        ev = slice(None, None, 2)
+        _same_bits(_fma_kernel(a[ev], b[ev], c[ev]), tsdf._fma_plain(a[ev], b[ev], c[ev]))
+
+
+def _views(case: str, dev):
+    """Operands of each layout the call sites hand _fma (a, b, c)."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    if case == "zero_dim":  # every operand 0-d, and 0-d b and c beside a full a
+        return [(r(()), r(()), r(())), (r(33, 7), r(()), r(()))]
+    if case == "pose_scalar":  # _apply_pose in step 1: component views, pose scalars
+        p = r(4, 1, 29, 31, 3)
+        T = r(4, 5, 1, 1, 4, 4)
+        return [(p[..., 1], T[..., 0, 1], r(4, 5, 29, 31)),
+                (p[..., 2], T[..., 2, 2], (p[..., 0] * T[..., 2, 0]))]
+    if case == "expanded":  # the raycast's refine: .expand()ed rows and columns
+        lo, hi, w = r(37), r(37), r(16)
+        dirs, org = r(37, 3), r(37, 3)
+        ts = (hi - lo)[:, None].expand(-1, 16)
+        return [(ts, w[None, :].expand(37, -1), lo[:, None].expand(-1, 16)),
+                (dirs[:, None, :].expand(-1, 16, -1), r(37, 16)[..., None].expand(-1, -1, 3),
+                 org[:, None, :].expand(-1, 16, -1))]
+    if case == "non_contiguous":
+        x = r(39, 24, 3)
+        return [(x[..., 0], x[..., 1], x[..., 2]), (x.transpose(0, 1), r(24, 39, 3), r(3)),
+                (x[::3, 1::2], x[1::3, ::2], x[2::3, 1::2])]
+    if case == "unaligned":  # one element past a 16-byte boundary: no vector loads
+        x = r(4097)
+        return [(x[1:], x[:-1], x[1:]), (x[1:], r(()), r(4096))]
+    if case == "many_dims":  # six dimensions left after merging
+        x = r(2, 3, 2, 3, 2, 3)
+        return [(x, x.permute(5, 4, 3, 2, 1, 0).contiguous().permute(5, 4, 3, 2, 1, 0), r(3))]
+    raise KeyError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero_dim", "pose_scalar", "expanded", "non_contiguous",
+                                  "unaligned", "many_dims"])
+def test_k4_kernel_matches_plain_on_views(cuda_device, case):
+    for a, b, c in _views(case, cuda_device):
+        _same_bits(_fma_kernel(a, b, c), _plain(a, b, c))
+
+
+@pytest.mark.cuda
+def test_k4_rejects_seven_dimensions(cuda_device):
+    x = torch.randn(2, 3, 2, 3, 2, 3, 2, device=cuda_device)
+    with pytest.raises(ValueError):
+        tsdf._fma(x, x.permute(6, 5, 4, 3, 2, 1, 0).contiguous().permute(6, 5, 4, 3, 2, 1, 0),
+                  x)
+
+
+@pytest.mark.cuda
+def test_k4_64_bit_indices(cuda_device):
+    """An operand that reaches past 2^31 elements, and outputs of more than
+    2^31 elements on the strided and the vector path (8.6 GB each)."""
+    big = torch.empty((1 << 31) + 4096, dtype=torch.float32, device=cuda_device)
+    big[:4096].normal_()
+    big[-4096:].normal_()
+    a = big.as_strided((2, 4096), (1 << 31, 1))  # rows 2^31 elements apart
+    b, c = torch.randn(4096, device=cuda_device), torch.randn(2, 1, device=cuda_device)
+    _same_bits(_fma_kernel(a, b, c), _plain(a.contiguous(), b, c))
+    del big, a
+
+    rows = (1 << 21) + 3  # rows x 1024 > 2^31
+    a, b = torch.randn(1024, device=cuda_device), torch.randn((), device=cuda_device)
+    c = torch.randn(rows, 1, device=cuda_device)
+    out = _fma_kernel(a, b, c)
+    check = torch.tensor([0, 1, rows // 2, rows - 2, rows - 1], device=cuda_device)
+    _same_bits(out[check], _plain(a, b, c[check]))
+    del out
+
+    n = (1 << 31) + 5
+    x, y, z = (torch.randn((), device=cuda_device) for _ in range(3))
+    out = _fma_kernel(x.expand(n), y, z)
+    want = tsdf._fma_plain(x[None], y, z)
+    _same_bits(out[-7:], want.expand(7))
+    assert bool((out.view(torch.int32) == want.view(torch.int32)).all())
+
+
+@pytest.mark.cuda
+def test_k4_kernels_are_charged_to_the_fma_span(cuda_device):
+    """Under a host-and-device profiler, benchmark.spans charges each K4
+    launch to the "fma" span of its `_fma` call (the launch's operator
+    record links it), and nothing to no span."""
+    from benchmark import spans
+
+    a = torch.randn(8, 1000, device=cuda_device)
+    b = torch.randn(8, 1, device=cuda_device)
+    tsdf._fma(a, b, a)  # the library built and loaded outside the trace
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            tsdf._fma(a, b, a)
+        torch.cuda.synchronize()
+    st = spans.attribute(spans.collect_linked(prof))
+    assert st["fma"]["opened"] == 3 and st["fma"]["events"] == 3
+    assert st["fma"]["self_s"] > 0
+    assert spans.UNATTRIBUTED not in st
+
+
+@pytest.mark.cuda
+def test_k4_in_step_1_equals_the_plain_version(cuda_device, monkeypatch, tmp_path):
+    """confidence_for_refs on Quest-scale depth (320x288) of the synthetic
+    box room with _fma on the card, against the same call with every _fma
+    pointed at the plain version: identical maps, and every _fma of the
+    call launched K4."""
+    from mq3d_tpu_torch.dataio.data_io import DataIO
+    from mq3d_tpu_torch.models.side import Side
+    from mq3d_tpu_torch.models.transforms import CoordinateSystem
+    from mq3d_tpu_torch.testing.synthetic import quest_scene, write_synthetic_project
+
+    write_synthetic_project(tmp_path, quest_scene(n_frames=12), workers=4)
+    io = DataIO(tmp_path)
+    ds = io.depth.load_depth_dataset(Side.LEFT, use_cache=False)
+    ds.transforms = ds.transforms.convert_coordinate_system(CoordinateSystem.OPEN3D,
+                                                            is_camera=True)
+    depth, valid = io.depth.load_depth_stack(Side.LEFT, ds)
+    K = ds.get_render_intrinsic_matrices().astype(np.float32)
+    T_cw = ds.transforms.extrinsics_cw.astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+            for x in (depth, K, T_cw, np.linalg.inv(T_cw), valid)]
+    args.append(torch.arange(len(depth), device=cuda_device))
+    calls = []
+    fma = tsdf._fma
+    counted = lambda *t: calls.append(1) or fma(*t)  # noqa: E731
+    monkeypatch.setattr(tsdf, "_fma", counted)
+    monkeypatch.setattr(confidence, "_fma", counted)
+    _build.reset_launch_counts()
+    kernel = confidence.confidence_for_refs(*args, 4.0, 0.08, 10)
+    torch.cuda.synchronize()
+    assert calls and _build.launch_counts()["fma"] == len(calls)
+    monkeypatch.setattr(tsdf, "_fma", tsdf._fma_plain)
+    monkeypatch.setattr(confidence, "_fma", tsdf._fma_plain)
+    plain = confidence.confidence_for_refs(*args, 4.0, 0.08, 10)
+    assert (plain[1] > 0).float().mean() > 0.5
+    for k, p in zip(kernel, plain):
+        assert torch.equal(k, p)
 
 
 # The sharded integration on the card (parallel/sharded.py).  Frames of

@@ -1,11 +1,13 @@
-"""mq3d_tpu_torch kernels K1 (patch lookup), K2 (I420 -> BGR) and K3
-(gather).
+"""mq3d_tpu_torch kernels K1 (patch lookup), K2 (I420 -> BGR), K3
+(gather) and K4 (fused multiply-add).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; those are
 held here against the JAX package's Pallas kernels in interpret mode and
 its XLA reference (K3: jnp.take, the body of the gather probe's Pallas
 kernels).  Tolerance: exact (K1 and K3 are pure gathers, K2 integer
-arithmetic on uint8).  The CUDA kernels themselves are held against the
+arithmetic on uint8).  K4 replaces no Pallas kernel: its plain version is
+held against XLA's fused multiply-add by tests/test_torch_fma.py; here its
+wrapper's operand rules and the layout it hands the kernel.  The CUDA kernels themselves are held against the
 plain versions on the card by tests/test_torch_cuda.py.
 """
 
@@ -18,6 +20,8 @@ from mq3d_tpu.ops.tsdf_pallas import patch_lookup as jax_patch_lookup
 from mq3d_tpu.ops.yuv import yuv420_to_8uc3 as jax_yuv420_to_8uc3
 from mq3d_tpu.ops.yuv_pallas import yuv420_to_bgr_pallas
 from mq3d_tpu_torch.kernels import _build
+from mq3d_tpu_torch.ops import tsdf
+from mq3d_tpu_torch.ops.fma import broadcast_shape, broadcast_strides, merge_layout
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.yuv import yuv420_to_8uc3, yuv420_to_bgr
@@ -122,7 +126,9 @@ def test_cpu_calls_count_no_launch(rng):
     c = torch.zeros((1, 2, 2), dtype=torch.uint8)
     yuv420_to_bgr(y, c, c)
     gather(torch.zeros(8), torch.zeros(4, dtype=torch.int32))
-    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0}
+    tsdf._fma(torch.ones(4), torch.ones(4), torch.ones(4))
+    assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0,
+                                      "fma": 0}
 
 
 def test_build_sources_and_flags():
@@ -130,7 +136,7 @@ def test_build_sources_and_flags():
     all started together, then one link); no source includes PyTorch's
     headers; the build hash follows the sources."""
     srcs = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
-    assert srcs == ["gather.cu", "i420.cu", "patch_lookup.cu"]
+    assert srcs == ["fma.cu", "gather.cu", "i420.cu", "patch_lookup.cu"]
     for p in _build.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text
@@ -139,7 +145,135 @@ def test_build_sources_and_flags():
     assert "-v" in _build.NVCC_FLAGS  # ptxas reports registers and spills
     assert len(_build._source_hash()) == 16
     assert set(_build._SIGNATURES) == {
-        "mq3d_patch_lookup", "mq3d_i420_to_bgr", "mq3d_gather"}
+        "mq3d_patch_lookup", "mq3d_i420_to_bgr", "mq3d_gather", "mq3d_fma"}
+    fma = (_build.CSRC_DIR / "fma.cu").read_text()
+    assert 'extern "C" int mq3d_fma(' in fma and "__fmaf_rn" in fma
+    assert not any("fast_math" in f or "ftz" in f for f in _build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (lambda x: (x.double(), x, x), TypeError),  # float64
+    (lambda x: (x, x.int(), x), TypeError),  # integer
+    (lambda x: (x, x, x.to("meta")), ValueError),  # mixed devices
+    (lambda x: (x.to("meta"),) * 3, ValueError),  # neither the CPU nor a card
+    (lambda x: (x, 0.1, x), TypeError),  # a scalar float32 cannot hold
+    (lambda x: (x, x, 2 ** 24 + 1), TypeError),
+    (lambda x: (x, np.float64(1e39), x), TypeError),  # float32 overflows
+    (lambda x: (x, True, x), TypeError),
+    (lambda x: (x, "1", x), TypeError),
+    (lambda x: (1.0, 2.0, 3.0), TypeError),  # no tensor
+    (lambda x: (x, 2.0, x), TypeError),  # a scalar float32 holds: no tensor either
+    (lambda x: (x, np.float32(0.5), x), TypeError),
+])
+def test_fma_rejects_what_it_does_not_take(bad, exc):
+    with pytest.raises(exc):
+        tsdf._fma(*bad(torch.ones(3)))
+
+
+@pytest.mark.parametrize("zero_dim", ["a", "ab", "c"])
+def test_fma_plain_computes_in_float64_whichever_operand_is_0d(rng, zero_dim):
+    """A 0-d operand gives the bits of the same value broadcast: the plain
+    version makes each operand float64 itself, where PyTorch's promotion
+    would keep a 0-d float64 `a` times a float32 `b` in float32."""
+    a, b, c = (torch.from_numpy(rng.standard_normal((64, 9), dtype=np.float32))
+               for _ in range(3))
+    if "a" in zero_dim:
+        a = a[0, 0]
+    if "b" in zero_dim:
+        b = b[0, 0]
+    if "c" in zero_dim:
+        c = c[0, 0]
+    full = [t.expand(64, 9).contiguous() for t in (a, b, c)]
+    got, want = tsdf._fma(a, b, c), tsdf._fma_plain(*full)
+    assert got.shape == want.shape == (64, 9)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+
+
+def test_fma_on_cpu_takes_the_plain_version(monkeypatch, rng):
+    """CPU tensors run `_fma_plain`, unchanged, and launch nothing."""
+    calls = []
+    plain = tsdf._fma_plain
+    monkeypatch.setattr(tsdf, "_fma_plain", lambda *t: calls.append(t) or plain(*t))
+    monkeypatch.setattr(tsdf, "fma_cuda", lambda *t: pytest.fail("the kernel was called"))
+    _build.reset_launch_counts()
+    a, b, c = (torch.from_numpy(rng.standard_normal((5, 7), dtype=np.float32))
+               for _ in range(3))
+    got = tsdf._fma(a, b[:, :1], c)
+    assert len(calls) == 1 and calls[0][0] is a and calls[0][2] is c
+    np.testing.assert_array_equal(got.numpy(), plain(a, b[:, :1], c).numpy())
+    assert _build.launch_counts()["fma"] == 0
+
+
+@pytest.mark.parametrize("shapes", [((2, 1), (1, 3)), ((), (4,)), ((5, 1, 3), (2, 3), ()),
+                                    ((0, 1), (1, 4)), ((3, 0), (0,)), ((1,), (1, 1, 1)),
+                                    ((2,), (3,)), ((0,), (2,))])
+def test_broadcast_shape_is_torchs(shapes):
+    """The wrapper's broadcast (plain Python, so its first call imports
+    nothing) gives torch.broadcast_shapes' shape, and raises where torch
+    does."""
+    try:
+        want = tuple(torch.broadcast_shapes(*shapes))
+    except RuntimeError:
+        with pytest.raises(ValueError):
+            broadcast_shape(*shapes)
+        return
+    assert broadcast_shape(*shapes) == want
+
+
+def test_launch_record_is_an_operator_inside_the_span():
+    """Under a profiler, `_build.launch_record` is an operator-scope event
+    (not a user range) that begins inside the span around it, the link
+    torch.profiler gives a kernel launched in it."""
+    from mq3d_tpu_torch.utils.log import span
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with span("fma"):
+            with _build.launch_record("mq3d::fma"):
+                torch.ones(2).add_(1)
+    ev = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    rng, op = ev["fma"], ev["mq3d::fma"]
+    assert rng.is_user_annotation() and not op.is_user_annotation()
+    assert rng.start_ns() <= op.start_ns()
+    assert op.start_ns() + op.duration_ns() <= rng.start_ns() + rng.duration_ns()
+
+
+def _layout_offsets(sizes, strides):
+    """Each element's offset, in the output's order, from a merged layout."""
+    n = int(np.prod(sizes)) if sizes else 1
+    i = np.arange(n)
+    off = np.zeros(n, np.int64)
+    for size, st in zip(sizes, strides):
+        off += (i % size) * st
+        i = i // size
+    return off
+
+
+@pytest.mark.parametrize("case", [
+    # (operand shapes and views) -> the number of dimensions left
+    "contiguous", "scalar", "expanded", "strided", "pose_scalar", "transposed", "size1"])
+def test_merge_layout_reads_what_broadcasting_reads(case):
+    """The merged layout addresses, element by element, what each operand's
+    broadcast view holds, and leaves as few dimensions as the views allow."""
+    base = torch.arange(4 * 5 * 6 * 3, dtype=torch.float32).reshape(4, 5, 6, 3)
+    ops, ndim = {
+        "contiguous": ((base, base + 1, base * 2), 1),
+        "scalar": ((base, torch.tensor(2.0), base), 1),
+        "expanded": ((base[:, :1].expand(4, 5, 6, 3), base, base[..., :1]), 4),
+        "strided": ((base[..., 1], base[..., 2], base[..., 0].contiguous()), 1),
+        "pose_scalar": ((base[:, :1, :, 0], base[:, :, :1, 0], torch.zeros(4, 5, 6)), 3),
+        "transposed": ((base.transpose(0, 2), base.transpose(0, 2).contiguous(),
+                        torch.tensor(1.0)), 4),
+        "size1": ((base[:1, :, :1], base[:1, :, :1], base[:1, :, :1]), 2),
+    }[case]
+    shape = broadcast_shape(*(t.shape for t in ops))
+    sizes, strides = merge_layout(shape, [broadcast_strides(t, shape) for t in ops])
+    assert len(sizes) == ndim and all(n >= 2 for n in sizes)
+    assert int(np.prod(sizes)) == int(np.prod(shape))
+    for t, st in zip(ops, strides):
+        flat = torch.as_strided(t, (t.untyped_storage().nbytes() // 4 - t.storage_offset(),),
+                                (1,)).numpy()
+        got = flat[_layout_offsets(sizes, st)]
+        np.testing.assert_array_equal(got, t.expand(shape).reshape(-1).numpy())
 
 
 @pytest.mark.parametrize("n,m", [(1 << 12, 1 << 10), (1 << 16, 4099), (7, 1)])
