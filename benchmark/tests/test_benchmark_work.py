@@ -77,6 +77,19 @@ def test_trace_reduction():
     assert trace._device_kind("Memcpy DtoH (Device -> Pageable)") == "d2h"
 
 
+def test_idle_gaps_find_the_open_range_behind_many_closed_ones():
+    # A step opens 1 000 short ranges, as a step-3 chunk opens its `fma`s;
+    # a gap after them still lies in the step's range and its operator.
+    ms = 1_000_000
+    ev = [(trace.TRACE_SPAN, "range", 0, 2000 * ms), ("bench.step", "range", 0, 2000 * ms),
+          ("aten::index", "host", 0, 2000 * ms)]
+    ev += [("fma", "range", i * ms, i * ms + 1) for i in range(1000)]
+    ev += [("aten::mul", "host", i * ms, i * ms + 1) for i in range(1000)]
+    ev += [("k", "kernel", 0, 1500 * ms), ("k", "kernel", 1501 * ms, 2000 * ms)]
+    gaps = dict(trace.idle_gaps(ev))
+    assert gaps == {"bench.step > aten::index": pytest.approx(0.001)}
+
+
 @pytest.mark.cuda
 def test_a_cell_runs_on_the_card(cuda_device):
     from conftest import tiny_cell

@@ -13,7 +13,6 @@ or "host" (an operator or runtime call on the host).
 
 from __future__ import annotations
 
-import bisect
 from collections import defaultdict
 
 TRACE_SPAN = "bench.traced"  # the range around the traced steps
@@ -65,16 +64,23 @@ def _merge(intervals):
     return merged
 
 
-def _innermost(starts, spans, t):
-    """The latest-starting span of `spans` (sorted by start) that holds t."""
-    i = bisect.bisect_right(starts, t) - 1
-    best = None
-    for j in range(i, max(i - 256, -1), -1):
-        s, e, name = spans[j]
-        if s <= t <= e:
-            best = name
-            break
-    return best
+def _innermost(spans, points):
+    """For each of the sorted `points`, the latest-starting span of `spans`
+    (sorted by start) that holds it, or None.  Spans nest, as the ranges
+    and operators of one thread do, so the spans open at a point form a
+    stack: however many closed spans lie between a point and the span
+    that holds it."""
+    out, stack, i = [], [], 0
+    for t in points:
+        while i < len(spans) and spans[i][0] <= t:
+            while stack and stack[-1][1] < spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        out.append(stack[-1][2] if stack else None)
+    return out
 
 
 def device_time(events: list, window_s: float) -> dict:
@@ -96,6 +102,34 @@ def device_time(events: list, window_s: float) -> dict:
     }
 
 
+def idle_pct(run: dict):
+    """The card's idle share of the traced steps, in %: the traced window
+    less the union of every device operation in it, over the window."""
+    t = run["trace"]
+    if not t or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
+
+
+def ms_per_unit(run: dict, kind: str):
+    """Device milliseconds of the operations of `kind` ("kernel", "h2d",
+    "d2h", ...) per unit of the traced steps."""
+    s = ((run["trace"] or {}).get("by_kind") or {}).get(kind)
+    if not s or not run["traced_units"]:
+        return None
+    return 1000.0 * s / run["traced_units"]
+
+
+def roofline_pct(run: dict):
+    """The traced steps' share of their roofline, in %: the least time the
+    card needs for their work (work/<entry>.py, peaks.py) over the summed
+    device time of every kernel in the traced window."""
+    kernel_s = ((run["trace"] or {}).get("by_kind") or {}).get("kernel", 0.0)
+    if not kernel_s or run["least_s"] is None:
+        return None
+    return 100.0 * run["least_s"] / kernel_s
+
+
 def idle_gaps(events: list) -> list:
     """The ten largest sums of idle device time inside the TRACE_SPAN
     range, each gap named by the innermost range open over its middle and
@@ -109,16 +143,12 @@ def idle_gaps(events: list) -> list:
     ranges = sorted((s, e, n) for n, k, s, e in events
                     if k == "range" and n != TRACE_SPAN and e > w0 and s < w1)
     hosts = sorted((s, e, n) for n, k, s, e in events if k == "host" and e > w0 and s < w1)
-    r_starts = [s for s, _, _ in ranges]
-    h_starts = [s for s, _, _ in hosts]
-    gaps = defaultdict(float)
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
-    for a, b in zip(edges[0::2], edges[1::2]):
-        if b <= a:
-            continue
-        mid = (a + b) // 2
-        span = _innermost(r_starts, ranges, mid) or "window"
-        op = _innermost(h_starts, hosts, mid)
+    idle = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    mids = [(a + b) // 2 for a, b in idle]
+    gaps = defaultdict(float)
+    for (a, b), span, op in zip(idle, _innermost(ranges, mids), _innermost(hosts, mids)):
+        span = span or "window"
         name = f"{span} > {op}" if op else span
         gaps[name[:_NAME_CHARS]] += (b - a) / 1e9
     return sorted(gaps.items(), key=lambda kv: -kv[1])[:10]
