@@ -10,8 +10,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
-import test_benchmark_checks
-from conftest import tiny_cell
+from conftest import tiny, tiny_cell
 
 from benchmark import core
 from benchmark.entries import integrate as entry
@@ -23,7 +22,7 @@ from mq3d_tpu_torch.ops.tsdf import TSDFVolume
 CELL = "default.integrate"
 SEED = 2 ** 31 + 977
 NUMBERS = ("block_mismatch_share", "weight_mismatch_share", "tsdf_mismatch_share")
-TINY_LIMITS = test_benchmark_checks.TINY_LIMITS["integrate"]
+TINY_LIMITS = tiny("integrate").LIMITS
 M = core.load_manifest()
 
 
