@@ -23,8 +23,15 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
   3. the main path: a synthetic capture at Quest scale through
      run_full_pipeline with the production TSDF settings (launch counts
      reset just before, read just after; every `_fma` call on the card
-     counted, and each must have launched K4: share 1.0); K1 timed again on
-     one of its integration tiles, saved during the run
+     counted, and each must have launched K4: share 1.0; K5 once a window
+     with blocks, K1 not at all, K5's pairs, each through the flat fetch);
+     check_k5 on the run's first window, saved during the run: K5
+     bit-equal to the tile path with K1 on the card and to the CPU tile
+     loop, its device ms beside the tile path's and the bound of K5's
+     operation count, and the tile path's share of tiles that took the
+     flat gather; K1 timed again on the first whole tile of that tile
+     path (the kernels line gives K1's main-path launches, 0, and its
+     launches on that tile path apart)
   4. the same depth integrated again with the plain lookup: the volume must
      be identical to the kernel path's
   5. a small capture through run_full_pipeline on the CPU and on the card
@@ -49,7 +56,7 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      capture of 200 frames per side of the room furnished with
      ROOM_CLUTTER through run_full_pipeline with
      config/pipeline_config.yml unchanged (every step, steps 1-2
-     included; launch counts reset just before, read just after, and K1's
+     included; launch counts reset just before, read just after, and K5's
      launches of the fragment integrations counted apart), with substep
      seconds, edge counts, the pair ICP's last fitness and rmse, and peak
      memory; confidence maps, poses against the ground truth, the
@@ -65,23 +72,23 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      timed, card == CPU on a 20 000-point subsample), evaluate_mesh_quality
      on the PLY and its FBX (equal raw metrics) and downsample_fbx_mesh
      --ratio 0.25; then the step CLIs on phase 5's small capture (K2 and
-     K1 launched, outputs equal to phase 5's card run) and
+     K5 launched, outputs equal to phase 5's card run) and
      run_full_pipeline --profile --export-fbx (a trace with the stages and
-     CUDA kernel events, K1 and K2 among them)
+     CUDA kernel events, K5 and K2 among them)
   9. the multi-device and batch-of-sessions paths (mq3d_tpu_torch.parallel):
      phase 3's capture through integrate_dataset_sharded on an NCCL group
      of one rank, replicated and partitioned, bit-equal to
-     TSDFVolume.integrate chunked the same way (K1 counted); the same
+     TSDFVolume.integrate chunked the same way (K5 counted); the same
      frames on two gloo ranks sharing cuda:0 (weights and blocks equal to
      the single-process volume, tsdf within 1e-5, partitioned == replicated
-     bit for bit, K1 launched on each rank), with the sharded raycast at
+     bit for bit, K5 launched on each rank), with the sharded raycast at
      1280x960 of the first 4 of phase 6's keyframe views that render alone
      within the edge budget (within 1e-6 of the single-process render, no
      edge overflow), pair ICP on phase 7's fragment pairs and the
      Gauss-Newton terms of phase 6's first call, each against the unsharded
      port; batch_run_full_pipeline as two hosts over three copies of phase
      5's capture, one without its left depth (both print [1, 0, 1] and exit
-     1; K1 and K2 launched in the sessions); dryrun_multichip on two gloo
+     1; K5 and K2 launched in the sessions); dryrun_multichip on two gloo
      ranks, tiny and production shapes.  Two ranks share one card, so
      these times say nothing about scaling over cards
   10. the native IO runtime and the host tools on phase 7's furnished room:
@@ -104,7 +111,7 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      settings; groups of 5 chunks of 20 frames) through the bench's parts,
      bench_integrate_fused_u16 on the quantized stack and
      bench_integrate_fused on the same stack dequantized on the host, one
-     rep each (volumes identical, K1 launched on each run, counts reset
+     rep each (volumes identical, K5 launched on each run, counts reset
      just before and read just after; frames/s after a warm-up group and
      bytes to the card per launch printed); TSDFVolume.integrate_scan on
      the first 200 frames against 10 integrate(auto_split=False) calls
@@ -132,7 +139,7 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      shipped config/pipeline_config.yml, every step on; rc 0, the
      colorless cloud and volume, the colour mesh and the colour-aligned
      depth written, every stage in pipeline_runtime.txt, [Substep] lines,
-     K1 and K2 launched, the card's name and power limit printed; its
+     K5 and K2 launched, the card's name and power limit printed; its
      stage and substep seconds printed; then phase 7's checks of the run
      on its session and output: the bare box room's parallel walls let
      the fragments slide against each other in the scene ICP, the JAX
@@ -143,7 +150,7 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      on >= 99.9 % of pixels, p99 |dconf| <= 0.01; both ICP residual
      rotations under 0.01 deg; B9 and B10 on the card beside the C++ on one
      and on all of the host's threads); bench_raycast on 4 views at
-     1280x960 (median error under a quarter voxel, 2.5 mm; K1 launched
+     1280x960 (median error under a quarter voxel, 2.5 mm; K5 launched
      while its volume is built)
 Then one JSON line with the kernels, the nvidia-smi line, and the final
 JSON line.  Nothing is caught: a failed phase ends the run non-zero.
@@ -163,6 +170,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -196,6 +204,13 @@ from mq3d_tpu_torch.ops.gather import MODES as gather_modes
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.sampling import sample_points_uniformly
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
+from mq3d_tpu_torch.ops.tsdf_window import (
+    OPS_MERGE_VOXEL,
+    OPS_PAIR_VOXEL,
+    integrate_window,
+    reset_window_pair_count,
+    window_pair_count,
+)
 from mq3d_tpu_torch.ops.yuv import (
     bgr_to_gray,
     convert_yuv420_888_to_bgr,
@@ -585,29 +600,32 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
         f"({time.perf_counter() - t0:.1f} s)")
     configs = colorless_recipe(**PRODUCTION_INTEGRATION)
 
-    # Keep the inputs of the first full integration tile that K1 fetches
-    # (its patch and patch-relative indices) for timing K1 on real data.
-    saved = []
+    # Keep the run's first K5 window (the first chunk's) for check_k5, its
+    # blocks' table rows as they stood before it; count the windows.
+    saved, windows = [], []
 
-    def keep_first_tile(patch, vi, ui):
-        if not saved and patch.shape[0] == configs.reconstruction.depth_integration.integrate_tile:
-            saved.append((patch.clone(), vi.clone(), ui.clone()))
-        return patch_lookup(patch, vi, ui)
+    def keep_first_window(cfg, tsdf, weight, block_coords, *rest):
+        slots = rest[-1]
+        if not saved:
+            saved.append((cfg, tsdf[slots], weight[slots], block_coords[slots],
+                          *(t.clone() for t in rest[:-1])))
+        windows.append(slots.numel())
+        return integrate_window(cfg, tsdf, weight, block_coords, *rest)
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     os.environ["MQ3D_SUBSTEP_TIMING"] = "1"  # reconstruction substep seconds
-    tsdf_ops.patch_lookup = keep_first_tile
+    tsdf_ops.integrate_window = keep_first_window
     _build.reset_launch_counts()
-    tsdf_ops.reset_lookup_tile_counts()
+    reset_window_pair_count()
     t0 = time.perf_counter()
     with counting_fma_calls({}) as fma_calls:
         run = run_full_pipeline(session, configs, device="cuda")
         torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = _build.launch_counts()
-    tiles = tsdf_ops.lookup_tile_counts()
-    tsdf_ops.patch_lookup = patch_lookup
+    pairs = window_pair_count()
+    tsdf_ops.integrate_window = integrate_window
     del os.environ["MQ3D_SUBSTEP_TIMING"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -625,13 +643,12 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
         f"dropped_active {vol.state.dropped_active}, points {len(pcd.points)}, "
         f"wall distance median {np.median(dist):.5f} m p99 "
         f"{np.quantile(dist, 0.99):.5f} m; launches {launches}")
-    n_tiles = tiles["patch"] + tiles["over"]
     fma_share = launches["fma"] / max(fma_calls.get("card_calls", 0), 1)
     log(f"[phase 3] K4: {launches['fma']} launches for {fma_calls.get('card_calls', 0)} "
         f"_fma calls on the card, share {fma_share:.4f}")
-    log(f"[phase 3] integration tiles: {tiles['patch']} through K1 (patch), "
-        f"{tiles['over']} through the flat gather (a voxel outside its patch); "
-        f"K1 share {tiles['patch'] / max(n_tiles, 1):.4f}")
+    log(f"[phase 3] K5: {launches['tsdf_window']} launches for {len(windows)} windows "
+        f"({sum(n > 0 for n in windows)} with blocks); {pairs} (block, frame) pairs, every "
+        f"one through the flat fetch")
     checks = {
         "colorless_vbg.npz exists": (recon / "colorless_vbg.npz").is_file(),
         "colorless.ply exists": (recon / "colorless.ply").is_file(),
@@ -642,8 +659,10 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
             float(np.quantile(dist, 0.99)) < 2 * PRODUCTION_INTEGRATION["voxel_size"],
         "overflow == 0": vol.state.overflow == 0,
         "dropped_active == 0": vol.state.dropped_active == 0,
-        "K1 launched": launches["patch_lookup"] > 0,
-        "one K1 launch per patch tile": launches["patch_lookup"] == tiles["patch"],
+        "K5 launched": launches["tsdf_window"] > 0,
+        "one K5 launch per window with blocks":
+            launches["tsdf_window"] == sum(n > 0 for n in windows),
+        "K1 off the main path": launches["patch_lookup"] == 0,
         "K2 launched": launches["i420_to_bgr"] > 0,
         "every _fma on the card launched K4":
             launches["fma"] > 0 and launches["fma"] == fma_calls.get("card_calls"),
@@ -651,13 +670,102 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
-    time_k1_on_tile(*saved[0])
-    return session, configs, vol, launches
+    k5, k1_tile, k1_launches = check_k5(*saved[0])
+    time_k1_on_tile(*k1_tile)
+    k5["launches"] = launches["tsdf_window"]
+    k5["pairs"] = pairs
+    return session, configs, vol, launches, k5, k1_launches
+
+
+def check_k5(cfg, tsdf0, weight0, block_coords, depth, K, E, touched, wkeys):
+    """K5 on the main path's first window, a whole chunk of production
+    frames, its blocks' tables as they stood before it: bit-equal to the
+    tile path with K1 (depth_lookup "pallas"), whose first whole tile is
+    kept for K1's row, and to the CPU tile loop (untimed); device ms from a
+    cold L2 beside the tile path's and the bound of K5's operation count
+    (ops.tsdf_window: operations a pair and voxel and a merged voxel;
+    bytes of the frames, poses and tables); the tile path's share of tiles
+    that took the flat gather (a voxel outside its pair's patch).  Returns
+    (K5's row, K1's tile, K1's launches on that tile path)."""
+    n, R3 = len(wkeys), cfg.r3
+    C = depth.shape[0]
+    rows = torch.arange(n, device=wkeys.device)
+
+    def k5(tables):
+        integrate_window(cfg, tables.tsdf, tables.weight, block_coords, depth, K, E, touched,
+                         wkeys, rows)
+
+    tile_cfg = dataclasses.replace(cfg, depth_lookup="pallas")
+    tile = []
+
+    def keep_first_tile(patch, vi, ui):
+        if not tile and patch.shape[0] == cfg.integrate_tile:
+            tile.append((patch.clone(), vi.clone(), ui.clone()))
+        return patch_lookup(patch, vi, ui)
+
+    window = (depth, K, E, block_coords, rows, touched, wkeys)
+
+    def tile_path(tables, lookup="pallas", inputs=window):
+        *frames_and_coords, slots, grid, keys = inputs
+        widx, f = tsdf_ops._pairs_from_grid(grid, keys)
+        sums, cnts = tsdf_ops._integrate_pairs(tile_cfg, *frames_and_coords, slots, widx, f,
+                                               lookup)
+        tsdf_ops._merge_window(tables, slots, sums, cnts)
+
+    def fresh(device=tsdf0.device):
+        return types.SimpleNamespace(tsdf=tsdf0.to(device, copy=True),
+                                     weight=weight0.to(device, copy=True))
+
+    def same(a, b):
+        return {k: torch.equal(getattr(a, k).cpu().view(torch.int32),
+                               getattr(b, k).cpu().view(torch.int32)) for k in ("tsdf", "weight")}
+
+    got, want, cpu = fresh(), fresh(), fresh("cpu")
+    reset_window_pair_count()
+    _build.reset_launch_counts()
+    k5(got)
+    pairs = window_pair_count()
+    tsdf_ops.reset_lookup_tile_counts()
+    tsdf_ops.patch_lookup = keep_first_tile
+    tile_path(want)
+    tsdf_ops.patch_lookup = patch_lookup
+    tiles = tsdf_ops.lookup_tile_counts()
+    launches = _build.launch_counts()
+    t0 = time.perf_counter()
+    tile_path(cpu, "flat", tuple(t.cpu() for t in window))
+    cpu_s = time.perf_counter() - t0
+    equal = {"tile path on the card": same(got, want), "CPU tile loop": same(got, cpu)}
+    if (not all(all(e.values()) for e in equal.values()) or launches["tsdf_window"] != 1
+            or not tile):
+        raise AssertionError(f"K5 on the main path's first window: equal {equal}, launches "
+                             f"{launches}, K1 tile kept {bool(tile)}")
+    scratch = fresh()
+    ms = time_ms(lambda: k5(scratch))
+    tile_ms = time_ms(lambda: tile_path(scratch), reps=3, warmup=1)
+    ops = pairs * R3 * OPS_PAIR_VOXEL + n * R3 * OPS_MERGE_VOXEL
+    nbytes = (depth.numel() + C * (16 + 9) + n * R3 * 2 * 2) * 4  # float32
+    b_ms, b_by = bound(nbytes, ops)
+    over = tiles["over"] / max(tiles["patch"] + tiles["over"], 1)
+    log(f"[phase 3] K5 tsdf_window on the first window ({n} blocks, {C} frames, "
+        f"{pairs} pairs, each through the flat fetch): bit-equal to the tile path with K1 and "
+        f"to the CPU tile loop ({cpu_s:.1f} s); the tile path's tiles {tiles}, over share "
+        f"{over:.4f}; kernel {ms:.4f} ms, tile path {tile_ms:.4f} ms (its host syncs inside "
+        f"the timed span), bound {b_ms:.4f} ms ({b_by}: {ops / 1e9:.2f} G operations, "
+        f"{nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.1f} % of it")
+    return ({"name": "tsdf_window", "route": "cuda",
+             "source": "mq3d_tpu_torch/csrc/tsdf_window.cu",
+             "replaces": "Phase B's tile loop (JAX _integrate_pairs, tile_body, _merge_window; "
+                         "K1's fetch folded in)",
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": tile_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, "window_blocks": n,
+             "window_pairs": pairs, "tile_path_over_share": over},
+            tile[0], launches["patch_lookup"])
 
 
 def time_k1_on_tile(patch, vi, ui) -> None:
-    """K1 on one integration tile of the main path (its patch-relative
-    indices are those of real voxels, not random ones)."""
+    """K1 on one integration tile of the main path's first window, taken
+    through the tile path (its patch-relative indices are those of real
+    voxels, not random ones)."""
     got = patch_lookup(patch, vi, ui)
     if not torch.equal(got, patch_lookup_plain(patch, vi, ui)):
         raise AssertionError("K1 differs from its plain version on a main-path tile")
@@ -954,7 +1062,7 @@ def colored_path(session: Path, scene: SyntheticSceneConfig, gn_path: Path):
     log(f"[phase 6] stage seconds: "
         + ", ".join(f"{k} {v:.2f}" for k, v in run.stage_seconds.items())
         + f"; total {total:.2f} s; peak device memory {peak_gb:.2f} GB; launches "
-        f"{launches} (steps 4-6 run plain PyTorch; K1/K2 of steps 0/3 ran in phase 3)")
+        f"{launches} (steps 4-6 run plain PyTorch; K2/K5 of steps 0/3 ran in phase 3)")
 
     checks, datasets = check_colored_outputs("phase 6", session, scene, printed,
                                              PRODUCTION_INTEGRATION["voxel_size"], sampled=True)
@@ -1069,7 +1177,7 @@ SHIPPED_CONFIG = Path(__file__).resolve().parent / "config/pipeline_config.yml"
 
 def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
     """Phase 7: the shipped configuration, unchanged, on a Quest-scale
-    capture of `room` on the card.  Returns (K1's launches on the fragment
+    capture of `room` on the card.  Returns (K5's launches on the fragment
     integrations, {check: passed} of the run, {check: passed} of its
     accuracy against the scene's ground truth, the session, the
     reconstruction config)."""
@@ -1083,16 +1191,16 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
     configs = PipelineConfigs.parse_config_yml(SHIPPED_CONFIG)
     rc = configs.reconstruction
 
-    # K1's launches and tiles of the fragment integrations, apart from
+    # K5's launches and pairs of the fragment integrations, apart from
     # step 3's: counted around that call of the run.
     frag = {}
     integrate_fragments = refine.integrate_and_save_fragment_point_clouds
 
     def counted(*args, **kwargs):
-        k1, tiles = _build.launch_counts()["patch_lookup"], tsdf_ops.lookup_tile_counts()
+        k5, pairs = _build.launch_counts()["tsdf_window"], window_pair_count()
         result = integrate_fragments(*args, **kwargs)
-        frag["k1"] = _build.launch_counts()["patch_lookup"] - k1
-        frag["tiles"] = {k: v - tiles[k] for k, v in tsdf_ops.lookup_tile_counts().items()}
+        frag["k5"] = _build.launch_counts()["tsdf_window"] - k5
+        frag["pairs"] = window_pair_count() - pairs
         return result
 
     refine.integrate_and_save_fragment_point_clouds = counted
@@ -1100,7 +1208,7 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
     torch.cuda.synchronize()
     os.environ["MQ3D_SUBSTEP_TIMING"] = "1"
     _build.reset_launch_counts()
-    tsdf_ops.reset_lookup_tile_counts()
+    reset_window_pair_count()
     out = _Tee()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1118,13 +1226,13 @@ def shipped_config_path(work: Path, scene: SyntheticSceneConfig, room: str):
         + f"; total {total:.2f} s; peak device memory {peak_gb:.2f} GB")
     log("[phase 7] substep seconds (summed over repeats): "
         + ", ".join(f"{k} {v:.3f}" for k, v in substeps_of(printed).items()))
-    log(f"[phase 7] launches {launches}; K1 on the fragment integrations {frag['k1']} "
-        f"(tiles {frag['tiles']}), on step 3 {launches['patch_lookup'] - frag['k1']}")
+    log(f"[phase 7] launches {launches}; K5 on the fragment integrations {frag['k5']} "
+        f"(pairs {frag['pairs']}), on step 3 {launches['tsdf_window'] - frag['k5']}")
     run_checks, accuracy = check_shipped_run("phase 7", session, scene, printed, rc, room)
-    run_checks["K1 launched on the fragment integrations"] = frag["k1"] > 0
-    run_checks["K1 launched on step 3"] = launches["patch_lookup"] > frag["k1"]
+    run_checks["K5 launched on the fragment integrations"] = frag["k5"] > 0
+    run_checks["K5 launched on step 3"] = launches["tsdf_window"] > frag["k5"]
     log(f"[phase 7] {room}: run checks {run_checks}; accuracy checks {accuracy}")
-    return frag["k1"], run_checks, accuracy, session, rc
+    return frag["k5"], run_checks, accuracy, session, rc
 
 
 def substeps_of(printed: str) -> dict:
@@ -1475,15 +1583,15 @@ def step_clis(work: Path) -> None:
     log(f"[phase 8] run_full_pipeline --profile --export-fbx: {secs:.1f} s, trace "
         f"{trace_path.stat().st_size / 1e6:.1f} MB, {len(events)} events, "
         f"{n_kernel_events} CUDA kernel events of {len(kernels)} kernels; hand kernels "
-        f"in it: {sorted(k for k in kernels if 'i420' in k or 'patch_lookup' in k)}")
+        f"in it: {sorted(k for k in kernels if 'i420' in k or 'tsdf_window' in k)}")
     checks = dict({f"{k} equal": v for k, v in same.items()}, **{
         "K2 launched by convert_yuv_to_rgb": launches["convert_yuv_to_rgb"]["i420_to_bgr"] > 0,
-        "K1 launched by reconstruct_scene": launches["reconstruct_scene"]["patch_lookup"] > 0,
+        "K5 launched by reconstruct_scene": launches["reconstruct_scene"]["tsdf_window"] > 0,
         "trace names the stages": all(n in names for n in (
             "convert_yuv_to_rgb", "convert_depth_to_linear", "reconstruct_scene",
             "export_fbx")),
         "trace holds CUDA kernel events": n_kernel_events > 0,
-        "K1 and K2 in the trace": any("patch_lookup" in k for k in kernels)
+        "K5 and K2 in the trace": any("tsdf_window" in k for k in kernels)
         and any("i420" in k for k in kernels),
         "color_mesh.fbx written": (profiled / "reconstruction/color_mesh.fbx").is_file(),
         "export_fbx stage in pipeline_runtime.txt":
@@ -1518,7 +1626,7 @@ def sharded_world_of_one(work: Path, session: Path, configs: PipelineConfigs, sm
     on an NCCL group of one rank, replicated and partitioned, against
     TSDFVolume.integrate chunked the same way: bit for bit (the all-reduce
     is the identity).  Returns the frames, the config, the chunk, the
-    reference volume's active rows and K1's launches."""
+    reference volume's active rows and K5's launches."""
     ic = configs.reconstruction.depth_integration
     cfg = tsdf_config_from_integration(ic)
     chunk = int(ic.frames_per_batch)
@@ -1532,7 +1640,7 @@ def sharded_world_of_one(work: Path, session: Path, configs: PipelineConfigs, sm
     torch.cuda.synchronize()
     secs = {"TSDFVolume.integrate": time.perf_counter() - t0}
     a, n = ref.state, ref.n_active
-    same, k1 = {}, {}
+    same, k5 = {}, {}
     group = pdist.init_group("nccl", 0, 1, f"file://{work}/nccl_store", timeout_s=600)
     try:
         for mode in ("replicated", "partitioned"):
@@ -1544,7 +1652,7 @@ def sharded_world_of_one(work: Path, session: Path, configs: PipelineConfigs, sm
                                           partition_state=mode == "partitioned", device="cuda")
             torch.cuda.synchronize()
             secs[mode] = time.perf_counter() - t0
-            k1[mode] = _build.launch_counts()["patch_lookup"]
+            k5[mode] = _build.launch_counts()["tsdf_window"]
             same[mode] = {
                 "counters": (a.n_active, a.overflow, a.dropped_active)
                 == (b.n_active, b.overflow, b.dropped_active),
@@ -1560,15 +1668,15 @@ def sharded_world_of_one(work: Path, session: Path, configs: PipelineConfigs, sm
         f"{depth.shape[2]}x{depth.shape[1]}, {chunk}-frame chunks, {cfg.voxel_size * 100:g} cm "
         f"voxels, "
         f"{cfg.block_count} blocks; {n} active): bit-equal to TSDFVolume.integrate "
-        f"{same}; K1 launches {k1}; seconds "
+        f"{same}; K5 launches {k5}; seconds "
         + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" ({smi})")
     failed = [f"{m}: {k}" for m, d in same.items() for k, ok in d.items() if not ok]
-    if failed or min(k1.values()) == 0:
-        raise AssertionError(f"sharded world of 1 differs or launched no K1: {failed}, {k1}")
+    if failed or min(k5.values()) == 0:
+        raise AssertionError(f"sharded world of 1 differs or launched no K5: {failed}, {k5}")
     arrays = {"slot_table": a.slot_table.cpu().numpy(),
               "block_coords": a.block_coords[:n].cpu().numpy(),
               "tsdf": a.tsdf[:n].cpu().numpy(), "weight": a.weight[:n].cpu().numpy()}
-    return frames, cfg, chunk, arrays, k1
+    return frames, cfg, chunk, arrays, k5
 
 
 def fragment_pairs(session: Path, rc):
@@ -1595,7 +1703,7 @@ def sharded_two_ranks(world1, views, furnished: Path, rc, gn_path: Path, smi: st
     and chunks as part 1, replicated and partitioned, then the sharded
     raycast of phase 6's views at 1280x960, pair ICP on phase 7's fragment
     pairs and the Gauss-Newton terms of phase 6's first call, each against
-    the unsharded port.  Returns K1's launches per rank."""
+    the unsharded port.  Returns K5's launches per rank."""
     (depth, K, T, valid), cfg, chunk, ref, _ = world1
     Kr, Tr, w, h = views
     sources, targets, max_corr, max_iter = fragment_pairs(furnished, rc)
@@ -1620,14 +1728,14 @@ def sharded_two_ranks(world1, views, furnished: Path, rc, gn_path: Path, smi: st
     fit_err = float(np.abs(icp_r["sharded"]["fitness"] - icp_r["plain"]["fitness"]).max())
     gn_ok = all(np.allclose(x, y, rtol=1e-6, atol=1e-8)
                 for x, y in zip(gn["sharded"], gn["plain"]))
-    k1 = [r["modes"]["replicated"]["launches"]["patch_lookup"] for r in integ]
+    k5 = [r["modes"]["replicated"]["launches"]["tsdf_window"] for r in integ]
     checks = {
         "same slot table and counters on both ranks": len(
             {(r["digest_tables"], r["n_active"], r["overflow"], r["dropped_active"])
              for r in integ}) == 1,
         "partitioned == replicated on both ranks": all(
             r["partitioned_equal"] and r["pad_rows_zero"] for r in integ),
-        "K1 launched on each rank": min(k1) > 0,
+        "K5 launched on each rank": min(k5) > 0,
         "slot table == single process": np.array_equal(a["slot_table"], ref["slot_table"]),
         "block coords == single process": np.array_equal(a["block_coords"], ref["block_coords"]),
         "weights == single process": np.array_equal(a["weight"], ref["weight"]),
@@ -1643,7 +1751,7 @@ def sharded_two_ranks(world1, views, furnished: Path, rc, gn_path: Path, smi: st
     log(f"[phase 9] 2 gloo ranks on cuda:0 ({wall:.1f} s wall, process start-up "
         f"included; {smi}): integration seconds per rank "
         + str([{m: round(v["seconds"], 2) for m, v in r["modes"].items()} for r in integ])
-        + f", K1 launches per rank {k1}, tsdf max |diff| to single process {tsdf_err:.3g}")
+        + f", K5 launches per rank {k5}, tsdf max |diff| to single process {tsdf_err:.3g}")
     log(f"[phase 9] sharded raycast of the first {len(ray['views_kept'])} of phase 6's "
         f"{ray['views_offered']} keyframe views that render alone without edge overflow "
         f"({ray['views_fitting']} do; kept {ray['views_kept']}), {w}x{h}: "
@@ -1658,7 +1766,7 @@ def sharded_two_ranks(world1, views, furnished: Path, rc, gn_path: Path, smi: st
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"two-rank checks failed: {failed}")
-    return k1
+    return k5
 
 
 def batch_two_hosts(work: Path, smi: str) -> dict:
@@ -1708,8 +1816,8 @@ def batch_two_hosts(work: Path, smi: str) -> dict:
     checks = {
         "both hosts exit 1": [p.returncode for p in procs] == [1, 1],
         "both hosts print [1, 0, 1]": statuses == [["[1, 0, 1]"], ["[1, 0, 1]"]],
-        "K1 and K2 launched in the sessions": all(
-            v["patch_lookup"] > 0 and v["i420_to_bgr"] > 0 for v in launches.values()),
+        "K5 and K2 launched in the sessions": all(
+            v["tsdf_window"] > 0 and v["i420_to_bgr"] > 0 for v in launches.values()),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1727,7 +1835,7 @@ def multi_rank_paths(work: Path, session: Path, configs: PipelineConfigs, views,
     world1 = sharded_world_of_one(work, session, configs, smi)
     log(f"[phase 9] part 1 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    k1_ranks = sharded_two_ranks(world1, views, furnished, rc, gn_path, smi)
+    k5_ranks = sharded_two_ranks(world1, views, furnished, rc, gn_path, smi)
     log(f"[phase 9] part 2 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     batch = batch_two_hosts(work, smi)
@@ -1736,9 +1844,9 @@ def multi_rank_paths(work: Path, session: Path, configs: PipelineConfigs, views,
     dryrun_multichip(2, device="cuda", backend="gloo", timeout_s=600)
     log(f"[phase 9] dryrun_multichip(2, cuda, gloo), tiny and production shapes, done in "
         f"{time.perf_counter() - t0:.1f} s ({smi})")
-    return {"patch_lookup": {"nccl_world_of_1": world1[4]["replicated"],
-                             "gloo_ranks": k1_ranks,
-                             "batch_sessions": sum(v["patch_lookup"] for v in batch.values())},
+    return {"tsdf_window": {"nccl_world_of_1": world1[4]["replicated"],
+                            "gloo_ranks": k5_ranks,
+                            "batch_sessions": sum(v["tsdf_window"] for v in batch.values())},
             "i420_to_bgr": {"batch_sessions": sum(v["i420_to_bgr"] for v in batch.values())}}
 
 
@@ -1974,10 +2082,10 @@ def u16_stream(smi: str) -> dict:
     # untimed and synchronizes at both ends of the clock.
     _build.reset_launch_counts()
     (u16_fps,), state = bench.bench_integrate_fused_u16(cfg, depth, K, T_wc, valid, "cuda", 1)
-    u16_k1 = _build.launch_counts()["patch_lookup"]
+    u16_k5 = _build.launch_counts()["tsdf_window"]
     _build.reset_launch_counts()
     (f32_fps,), f32_state = bench.bench_integrate_fused(cfg, dep_f, K, T_wc, valid, "cuda", 1)
-    f32_k1 = _build.launch_counts()["patch_lookup"]
+    f32_k5 = _build.launch_counts()["tsdf_window"]
     same = _same_volume(state, f32_state)
     del f32_state
 
@@ -1997,22 +2105,22 @@ def u16_stream(smi: str) -> dict:
     diff = _tsdf_diff(state, exact, cfg)
     log(f"[phase 11] uint16 stream (bench_integrate_fused_u16): {u16_fps:.1f} frames/s "
         f"({len(depth) - per} frames after a warm-up group), {_group_bytes(2, 4)} bytes to "
-        f"the card per launch, K1 launches {u16_k1}; bench_integrate_fused on the dequantized "
-        f"float32 stack: {f32_fps:.1f} frames/s, {_group_bytes(4)} bytes per launch, K1 "
-        f"launches {f32_k1}; on the unquantized depth {exact_fps:.1f} frames/s; {smi}")
+        f"the card per launch, K5 launches {u16_k5}; bench_integrate_fused on the dequantized "
+        f"float32 stack: {f32_fps:.1f} frames/s, {_group_bytes(4)} bytes per launch, K5 "
+        f"launches {f32_k5}; on the unquantized depth {exact_fps:.1f} frames/s; {smi}")
     log(f"[phase 11] n_active {state.n_active}, overflow {state.overflow}, dropped_active "
         f"{state.dropped_active} (no auto-split); u16 == dequantized float32: {same}; first "
         f"200 frames, integrate_scan == 10 integrate(auto_split=False): {first_same}; "
         f"against the unquantized depth ({exact.n_active} blocks): {diff}")
     checks = {"u16 == dequantized float32": all(same.values()),
-              "K1 launched on the u16 run": u16_k1 > 0,
-              "K1 launched on the float32 run": f32_k1 > 0,
+              "K5 launched on the u16 run": u16_k5 > 0,
+              "K5 launched on the float32 run": f32_k5 > 0,
               "integrate_scan == per-chunk integrate": first_same,
               "n_active > 0": state.n_active > 0}
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"uint16 stream checks failed: {failed}")
-    return {"u16_k1": u16_k1, "f32_k1": f32_k1}
+    return {"u16": u16_k5, "f32": f32_k5}
 
 
 def single_frame_yuv(work: Path) -> int:
@@ -2381,7 +2489,7 @@ def prod_e2e(work: Path, smi: str) -> dict:
         "colour-aligned depth on both sides": min(aligned) > 0,
         "every stage in pipeline_runtime.txt": set(PROD_E2E_STAGES) <= set(stages),
         "[Substep] lines": len(substeps) > 0,
-        "K1 launched": launches.get("patch_lookup", 0) > 0,
+        "K5 launched": launches.get("tsdf_window", 0) > 0,
         "K2 launched": launches.get("i420_to_bgr", 0) > 0,
         "the card's name and power limit printed": smi in err,
         **{f"box room: {k}": v for k, v in run_checks.items()},
@@ -2397,7 +2505,7 @@ def prod_e2e(work: Path, smi: str) -> dict:
 def stage_baselines_and_raycast() -> int:
     """Phase 13, second part: bench_reference_stages --parity with cut reps
     and bench_raycast on 4 views, each in a subprocess, with their gates.
-    Returns K1's launches of bench_raycast's volume build."""
+    Returns K5's launches of bench_raycast's volume build."""
     t0 = time.perf_counter()
     proc = _run_module(["mq3d_tpu_torch.tools.bench_reference_stages", "--parity",
                         "--conf-reps", "3", "--icp-reps", "1"], timeout=900)
@@ -2423,13 +2531,13 @@ def stage_baselines_and_raycast() -> int:
         "the port's stages on the card": conf["port_device"].startswith("cuda")
             and icp_res["port"]["device"].startswith("cuda"),
         "raycast median error < 2.5 mm": rc["accuracy"]["median_mm"] < 2.5,
-        "K1 launched building the raycast's volume": rc["launches"]["patch_lookup"] > 0,
+        "K5 launched building the raycast's volume": rc["launches"]["tsdf_window"] > 0,
     }
     log(f"[phase 13] stage baselines and raycast checks {checks}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"stage baseline / raycast checks failed: {failed}")
-    return rc["launches"]["patch_lookup"]
+    return rc["launches"]["tsdf_window"]
 
 
 def main() -> None:
@@ -2467,11 +2575,13 @@ def main() -> None:
     try:
         scene = quest_scene(n_frames=60)
         t0 = time.perf_counter()
-        session, configs, vol, launches = main_path(work, scene)
+        session, configs, vol, launches, k5, k1_launches = main_path(work, scene)
         log(f"[phase 3] done in {time.perf_counter() - t0:.1f} s")
-        for k in kernels[:2]:
-            k["launches"] = launches[k["name"]]
+        kernels[0]["launches"] = launches["patch_lookup"]
+        kernels[0]["launches_reference_tile_path"] = k1_launches  # on K5's first window
+        kernels[1]["launches"] = launches["i420_to_bgr"]
         kernels[3]["launches"] = launches["fma"]
+        kernels.append(k5)
 
         t0 = time.perf_counter()
         plain_path(session, configs, vol)
@@ -2493,13 +2603,13 @@ def main() -> None:
         # The furnished room, checked in full.  The bare box room's run of
         # the shipped config is phase 13's run_prod_e2e.
         furnished = quest_scene(200, ROOM_CLUTTER)
-        k1, furnished_run, accuracy, session, rc = shipped_config_path(
+        k5_frag, furnished_run, accuracy, session, rc = shipped_config_path(
             work, furnished, "furnished room")
         failed = [f"furnished room: {k}"
                   for k, ok in dict(furnished_run, **accuracy).items() if not ok]
         if failed:
             raise AssertionError(f"shipped config checks failed: {failed}")
-        kernels[0]["launches_fragment_path"] = k1
+        kernels[4]["launches_fragment_path"] = k5_frag
         time_pose_programs(session, rc)
         log(f"[phase 7] done in {time.perf_counter() - t0:.1f} s")
 
@@ -2510,7 +2620,7 @@ def main() -> None:
 
         t0 = time.perf_counter()
         phase9 = multi_rank_paths(work, capture, configs, views, session, rc, gn_path, smi)
-        for k in kernels[:2]:
+        for k in (kernels[1], kernels[4]):
             k["launches_phase9"] = phase9[k["name"]]
         log(f"[phase 9] done in {time.perf_counter() - t0:.1f} s")
 
@@ -2520,7 +2630,7 @@ def main() -> None:
 
         t0 = time.perf_counter()
         phase11 = u16_stream(smi)
-        kernels[0]["launches_phase11"] = phase11
+        kernels[4]["launches_phase11"] = phase11
         kernels[1]["launches_phase11"] = single_frame_yuv(work)
         study(work)
         log(f"[phase 11] done in {time.perf_counter() - t0:.1f} s")
@@ -2531,7 +2641,7 @@ def main() -> None:
 
         t0 = time.perf_counter()
         launches = prod_e2e(work, smi)
-        kernels[0]["launches_phase13"] = {"run_prod_e2e": launches["patch_lookup"],
+        kernels[4]["launches_phase13"] = {"run_prod_e2e": launches["tsdf_window"],
                                           "bench_raycast": stage_baselines_and_raycast()}
         kernels[1]["launches_phase13"] = {"run_prod_e2e": launches["i420_to_bgr"]}
         log(f"[phase 13] done in {time.perf_counter() - t0:.1f} s")

@@ -55,10 +55,12 @@ NVCC_FLAGS = (
 )
 
 # C entry points: name -> (restype, argtypes); each returns a cudaError_t.
-# P = pointer, I = int, L = pointer to long long.
+# P = pointer, I = int, L = pointer to long long, LL = long long, F = float.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.POINTER(ctypes.c_longlong)
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # (patch, vi, ui, out, TP, PS, V, stream)
     "mq3d_patch_lookup": (_I, (_P, _P, _P, _P, _I, _I, _I, _P)),
@@ -68,11 +70,17 @@ _SIGNATURES = {
     "mq3d_gather": (_I, (_P, _I, _P, _P, ctypes.c_longlong, _I, _P)),
     # (a, b, c, out, ndim, sizes, strides, stream)
     "mq3d_fma": (_I, (_P, _P, _P, _P, _I, _L, _L, _P)),
+    # (depth, K, E, touched, touched_stride, wkeys, slots, block_coords, tsdf,
+    #  weight, sums, cnts, pairs, n, C, H, W, R, voxel_size, depth_max,
+    #  neg_trunc, trunc, inv_trunc, stream)
+    "mq3d_tsdf_window": (_I, (_P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _F, _F, _F, _F, _F, _P)),
 }
 
 _last_build_seconds: Optional[float] = None
 _last_build_report: str = ""
-_launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0, "fma": 0}
+_launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0, "fma": 0,
+                             "tsdf_window": 0}
 
 
 def launch_record(name: str):

@@ -12,12 +12,18 @@ running weighted average tsdf' = (tsdf*w + obs)/(w+1), w' = w + 1.
   Phase B  integration: per tile of `integrate_tile` pairs, project the
            block's R^3 voxels, fetch the depth (flat gather, or the
            per-pair depth patch through K1, ops/tsdf_patch.py), sum the
-           observations per block in frame order, then merge.
+           observations per block in frame order, then merge.  On the card
+           with depth_lookup "auto", all of it is one launch of K5 a
+           capacity window (ops/tsdf_window.py, csrc/tsdf_window.cu): one
+           thread block per window block reads the block's frames from the
+           touch grid, projects, fetches, sums in frame order and merges in
+           place, with no host sync; it equals the tile loop bit for bit.
   Extract  zero-crossing point cloud along +x/+y/+z, and marching cubes with
            lattice-edge-keyed vertex welding (`_extract_mesh`).
 
-Phase A, Phase B and extraction are plain PyTorch here; the depth fetch of
-`depth_lookup="pallas"` (the form "auto" takes on the card) is K1.
+Phase A and extraction are plain PyTorch here.  Phase B is K5 on the card
+("auto"); the tile loop, plain PyTorch with K1 as the depth fetch of
+`depth_lookup="pallas"`, runs for CPU tensors and the explicit modes.
 
 Bit-exactness with the JAX build on the CPU.  XLA's CPU compiler contracts
 `a*b + c` into a fused multiply-add, so the reference's projection and
@@ -32,7 +38,8 @@ Divisions never take a Python scalar divisor: CUDA PyTorch turns x / s into
 x * (1/s), which is not the correctly rounded quotient.
 
 Sums per block are taken in frame order without atomics (see
-`_accumulate_tile`), so results do not change from run to run.
+`_accumulate_tile`, and K5's thread block per window block), so results do
+not change from run to run.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from mq3d_tpu_torch.device import resolve_device
 from mq3d_tpu_torch.ops.fma import check_operands, fma_cuda
 from mq3d_tpu_torch.ops.mc_tables import CORNERS, build_tables, edge_owner
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
+from mq3d_tpu_torch.ops.tsdf_window import integrate_window
 from mq3d_tpu_torch.utils.log import span, substep
 
 
@@ -72,7 +80,9 @@ class TSDFConfig:
     #             centre, fetched by K1 (ops/tsdf_patch.py) on the card;
     #   "onehot"  the same patch fetch with the plain PyTorch gather (the JAX
     #             build's one-hot matmul form computes this function);
-    #   "auto"    "pallas" on the card, "flat" on the CPU.
+    #   "auto"    K5 on the card (ops/tsdf_window.py: Phase B of a window in
+    #             one launch, the patch fetch and the flat one per voxel),
+    #             "flat" on the CPU.
     # Every form gives identical results: a tile whose in-image voxels do
     # not all fall inside their pair's patch takes the flat gather.
     depth_lookup: str = "auto"
@@ -300,8 +310,10 @@ def _norm3(v: torch.Tensor) -> torch.Tensor:
 
 
 def _resolve_lookup(cfg: TSDFConfig, device: torch.device) -> str:
+    """Phase B's form on `device`: "window" (K5, one launch a capacity
+    window) for "auto" on the card, else the tile loop's depth lookup."""
     if cfg.depth_lookup == "auto":
-        return "pallas" if device.type == "cuda" else "flat"
+        return "window" if device.type == "cuda" else "flat"
     if cfg.depth_lookup not in ("flat", "onehot", "pallas"):
         raise ValueError(f"unknown depth_lookup {cfg.depth_lookup!r}")
     return cfg.depth_lookup
@@ -403,7 +415,8 @@ def _pairs_from_grid(frame_touched, wkeys):
 
 # Tiles of the patch lookup ("pallas"/"onehot") that fetched from the patch,
 # and those that took the flat gather because a voxel fell outside its
-# pair's patch (`over`).  Read by chip_smoke.py to show K1's share.
+# pair's patch (`over`).  Read by chip_smoke.py to show K1's share; K5
+# counts its pairs on the card (`ops.tsdf_window.window_pair_count`).
 _lookup_tiles = {"patch": 0, "over": 0}
 
 
@@ -580,10 +593,15 @@ def integrate_chunk(cfg: TSDFConfig, state: TSDFState, depth, intrinsics,
     frame_touched = _frame_touch_grid(cfg, depth, intrinsics, T_cw, frame_valid)
     touched = frame_touched[:, :G3].any(dim=0)
     wkeys, active_slots = _alloc_and_window(cfg, state, touched, block_skip)
+    lookup = _resolve_lookup(cfg, dev)
+    if lookup == "window":
+        integrate_window(cfg, state.tsdf, state.weight, state.block_coords, depth,
+                         intrinsics, extrinsics_wc, frame_touched, wkeys, active_slots)
+        return state
     widx, f = _pairs_from_grid(frame_touched, wkeys)
     sums, cnts = _integrate_pairs(
         cfg, depth, intrinsics, extrinsics_wc, state.block_coords,
-        active_slots, widx, f, _resolve_lookup(cfg, dev))
+        active_slots, widx, f, lookup)
     _merge_window(state, active_slots, sums, cnts)
     return state
 

@@ -11,7 +11,8 @@ bytes) of what it holds, so the caller can check that all ranks hold the
 same thing; rank 0 also returns the arrays.  Kinds:
 
   integrate   integrate_dataset_sharded, replicated and/or partitioned:
-              counters, K1 launches and tiles per rank, partitioned rows ==
+              counters, kernel launches (K5 on the card) and the tile
+              loop's patch tiles per rank, partitioned rows ==
               replicated rows bit for bit, pad rows zero
   raycast     sharded_raycast_batch on the integrated volume (or one made
               from the job's frames), optionally of the first `views` views

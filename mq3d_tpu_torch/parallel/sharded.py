@@ -13,8 +13,9 @@ tsdf' = (tsdf*w + obs)/(w+1) is a running mean of observations:
     from the same prior state (the host syncs of `_alloc_and_window` see
     identical inputs on every rank);
   * integration: each rank sums (obs, count) over its frames' pairs in the
-    window of touched blocks (K1 on the card), and one sum-all-reduce
-    merges the windows before the shared merge formula.
+    window of touched blocks (K5's sums form on the card,
+    ops/tsdf_window.py::window_sums), and one sum-all-reduce merges the
+    windows before the shared merge formula.
 
 The window sums are added across ranks in the backend's order, not in
 frame order, so a sharded volume matches a single-process one with
@@ -48,6 +49,7 @@ from mq3d_tpu_torch.ops.tsdf import (
     create_state,
     integrate_windows,
 )
+from mq3d_tpu_torch.ops.tsdf_window import window_sums
 from mq3d_tpu_torch.parallel.dist import (
     all_gather,
     all_reduce_,
@@ -133,9 +135,13 @@ def sharded_integrate_step(cfg: TSDFConfig, group, partition_state: bool = False
             wkeys, active_slots = _alloc_and_window(cfg, state, touched, block_skip)
             if active_slots.numel() == 0:  # the same on every rank
                 return
-            widx, f = _pairs_from_grid(frame_touched, wkeys)
-            sums, cnts = _integrate_pairs(cfg, depth_l, K_l, T_wc, state.block_coords,
-                                          active_slots, widx, f, lookup)
+            if lookup == "window":
+                sums, cnts = window_sums(cfg, state.block_coords, depth_l, K_l, T_wc,
+                                         frame_touched, wkeys, active_slots)
+            else:
+                widx, f = _pairs_from_grid(frame_touched, wkeys)
+                sums, cnts = _integrate_pairs(cfg, depth_l, K_l, T_wc, state.block_coords,
+                                              active_slots, widx, f, lookup)
             all_reduce_(sums, group)
             all_reduce_(cnts, group)
             if partition_state:

@@ -3,7 +3,7 @@ and the scene pose graph.
 
 Counterpart of mq3d_tpu/recon/refine.py (reference
 refine_fragment_poses.py:14-321): each fragment is integrated into its own
-TSDF volume (the depth fetch through K1 on the card) and extracted to a
+TSDF volume (Phase B through K5 on the card) and extracted to a
 point cloud; consecutive fragments of a side give odometry edges and every
 pair gives a loop edge, gated by a down-sampled pre-filter; each edge's
 transform comes from multi-scale point-to-point ICP with a G^T G

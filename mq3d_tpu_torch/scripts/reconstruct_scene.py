@@ -1,5 +1,5 @@
 """CLI: scene reconstruction of one capture (steps 0-6 as the config
-switches them; K1 on the card).
+switches them; K5 on the card).
 
     python -m mq3d_tpu_torch.scripts.reconstruct_scene \
         --project_dir <capture dir> [--config <pipeline yml>] [--device cpu]

@@ -16,7 +16,8 @@ ranges of utils/log.py's `span` appear by name: the stages, the substeps,
 step 1's phases and each `_fma` (README.md lists them).
 
 pipeline_runtime.txt also counts the hand-written kernels' launches of the
-run (kernel_launches: patch_lookup=... i420_to_bgr=... gather=... fma=...).
+run (kernel_launches: patch_lookup=... i420_to_bgr=... gather=... fma=...
+tsdf_window=...).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@
 Counterpart of tools/bench_raycast.py.  It builds the bench's volume (50
 frames of the 320x288 box-room orbit integrated at the production
 `TSDFConfig()`: voxel 1 cm, 16^3 blocks, 50 000 blocks;
-`bench_reference_raycast.build_volume`, K1 on the card) and renders
+`bench_reference_raycast.build_volume`, K5 on the card) and renders
 n_frames (default 4) orbit views at 1280x960 through
 `ops/raycast.py::raycast_depth`, the workload of the color-aligned depth
 step: one warm call, then the median, min and max ms per frame (each call

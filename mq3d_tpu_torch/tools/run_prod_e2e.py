@@ -15,7 +15,7 @@ temporary directory) and its seconds are printed apart: the pipeline
 starts from a capture on disk, as the reference's does.  --keep reuses a
 capture already there.  Then it prints the pipeline's wall clock
 (synchronized at both ends) and its pipeline_runtime.txt, and on standard
-error the hand-written kernels' launches of the run (K1 patch_lookup, K2
+error the hand-written kernels' launches of the run (K5 tsdf_window, K2
 i420_to_bgr) and, on the card, its name and power limit as nvidia-smi
 gives them.
 

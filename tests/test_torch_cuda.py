@@ -16,11 +16,19 @@ scalar indices; K4 on its vector path (contiguous or scalar operands,
 16-byte aligned) and its strided path with 32-bit indices and with 64-bit
 ones (an output past 2^31 elements, an operand reaching past 2^31), on
 ties, near-ties and special values, and step 1 with `_fma` on the card
-against the same call with `_fma` pointed at its plain version.
+against the same call with `_fma` pointed at its plain version; K5's
+volume against the tile loop's, on the card ("pallas") and on the CPU,
+over several chunks, several capacity windows, invalid and depthless
+frames, one-frame chunks, voxels outside their pair's patch, the uint16
+stream and an NCCL world of one, with one launch a window and no host sync
+inside a window's call.
 
 Tolerance: exact (K1 and K3 are gathers, K2 integer arithmetic, K4 one
-correctly rounded operation, compared as bits, NaN as NaN).
+correctly rounded operation, compared as bits, NaN as NaN; K5's volumes
+compared as bytes).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -30,6 +38,8 @@ from mq3d_tpu_torch.kernels import _build
 from mq3d_tpu_torch.ops import tsdf
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
+from mq3d_tpu_torch.ops.tsdf_window import (
+    integrate_window, reset_window_pair_count, window_pair_count)
 from mq3d_tpu_torch.ops.yuv import yuv420_to_8uc3, yuv420_to_bgr
 from mq3d_tpu_torch.recon import confidence
 from mq3d_tpu_torch.testing.fma_cases import compare_bits, special_triples, tie_triples
@@ -181,8 +191,11 @@ def test_empty_inputs_launch_nothing(cuda_device):
     assert gather(table, torch.zeros(0, dtype=torch.int32, device=cuda_device)).shape == (0,)
     empty = torch.zeros((3, 0), dtype=torch.float32, device=cuda_device)
     assert tsdf._fma(empty, table[:1], table[0]).shape == (3, 0)
+    window = {k: v.to(cuda_device) for k, v in _k5_operands().items()}
+    window["wkeys"] = window["slots"] = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    integrate_window(tsdf.TSDFConfig(block_resolution=4), **window)
     assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0,
-                                      "fma": 0}
+                                      "fma": 0, "tsdf_window": 0}
 
 
 def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
@@ -371,8 +384,8 @@ def test_k4_in_step_1_equals_the_plain_version(cuda_device, monkeypatch, tmp_pat
         assert torch.equal(k, p)
 
 
-# The sharded integration on the card (parallel/sharded.py).  Frames of
-# 128x96 px, so pairs fetch through K1 (the patch is 64 px).  Two gloo
+# The sharded integration on the card (parallel/sharded.py), through K5.
+# Frames of 128x96 px, so pairs have a 64 px patch.  Two gloo
 # ranks share cuda:0 (NCCL refuses two ranks on one GPU); tolerances as on
 # the CPU (tests/test_torch_parallel.py): weights exact, tsdf within 1e-5.
 
@@ -406,7 +419,7 @@ def test_two_gloo_ranks_on_the_card_match_the_cpu_world(cuda_device):
     assert len({r[0]["digest_tables"] for r in card}) == 1
     assert all(r[0]["partitioned_equal"] and r[0]["pad_rows_zero"] for r in card)
     for r in card:
-        assert r[0]["modes"]["replicated"]["launches"]["patch_lookup"] > 0
+        assert r[0]["modes"]["replicated"]["launches"]["tsdf_window"] > 0
     (cc, ct, cw), (pc, pt, pw) = _volume(card[0][0]["arrays"]), _volume(cpu[0][0]["arrays"])
     np.testing.assert_array_equal(cc, pc)
     np.testing.assert_array_equal(cw, pw)
@@ -427,7 +440,7 @@ def test_nccl_world_of_one_equals_tsdf_volume_integrate(cuda_device):
         vol.integrate(depth[s:s + 8], K[s:s + 8], T[s:s + 8], valid[s:s + 8])
     n = vol.n_active
     a = res["arrays"]
-    assert res["n_active"] == n and res["modes"]["replicated"]["launches"]["patch_lookup"] > 0
+    assert res["n_active"] == n and res["modes"]["replicated"]["launches"]["tsdf_window"] > 0
     assert np.array_equal(a["slot_table"], vol.state.slot_table.cpu().numpy())
     for k in ("block_coords", "tsdf", "weight"):
         assert np.array_equal(a[k], getattr(vol.state, k)[:n].cpu().numpy()), k
@@ -435,7 +448,7 @@ def test_nccl_world_of_one_equals_tsdf_volume_integrate(cuda_device):
 
 # The uint16 depth stream (ops/tsdf.py integrate_chunks_u16) on the card:
 # bench.py's capture style (orbit depth of the box room, 320x288) at the
-# production settings' 1 cm voxels, where K1 fetches the depth, cut to 2
+# production settings' 1 cm voxels, where K5 integrates, cut to 2
 # groups of 3 chunks of 10 frames.  Tolerance: exact.
 
 @pytest.mark.cuda
@@ -472,8 +485,166 @@ def test_u16_stream_on_the_card_matches_the_cpu_and_float32_paths(cuda_device):
 
     _build.reset_launch_counts()
     card = run(cuda_device, dq, True)
-    assert _build.launch_counts()["patch_lookup"] > 0
+    assert _build.launch_counts()["tsdf_window"] > 0
     assert int(card["n_active"]) > 0
     for other in (run("cpu", dq, True), run(cuda_device, dep_f, False)):
         for k in card:
             np.testing.assert_array_equal(other[k], card[k], err_msg=k)
+
+
+# K5 (csrc/tsdf_window.cu): Phase B of a capacity window in one launch, the
+# form "auto" takes on the card.  Each case integrates the same chunks
+# three ways: "auto" on the card (K5), "pallas" on the card (the tile loop
+# with K1's patch fetch) and "auto" on the CPU (the tile loop with the flat
+# gather); the volumes must be equal bit for bit, counters included.  Every
+# K5 call runs with synchronizing operations raising, and K5 launches once a
+# window that holds blocks and never otherwise.  Frames: the box room's
+# orbit depth at 320x288 (bench.py's capture style), production TSDF
+# settings unless a case says otherwise.  Tolerance: exact.
+
+def _k5_operands() -> dict:
+    """K5 operands on the CPU for a 2-frame chunk of 8x10 depth and a
+    window of 3 blocks of 4^3 voxels."""
+    C, H, W, R, N = 2, 8, 10, 4, 5
+    return dict(tsdf=torch.zeros((N, R ** 3)), weight=torch.zeros((N, R ** 3)),
+                block_coords=torch.zeros((N, 3), dtype=torch.int32),
+                depth=torch.ones((C, H, W)), intrinsics=torch.eye(3).expand(C, 3, 3),
+                extrinsics_wc=torch.eye(4).expand(C, 4, 4),
+                frame_touched=torch.zeros((C, 65), dtype=torch.bool),
+                wkeys=torch.arange(3), slots=torch.arange(3))
+
+
+def _box_room(n: int, h: int = 288, w: int = 320):
+    from mq3d_tpu_torch.testing.synthetic import (
+        SyntheticSceneConfig, intrinsics_from_cfg, orbit_poses_o3d, render_box_depth)
+
+    scene = SyntheticSceneConfig(n_frames=n, depth_width=w, depth_height=h)
+    fx, fy, cx, cy = intrinsics_from_cfg(scene, w, h)
+    poses_cw = orbit_poses_o3d(scene).extrinsics_cw.astype(np.float64)
+    depth = np.stack([render_box_depth(p, fx, fy, w - cx, cy, w, h, scene.box_min,
+                                       scene.box_max) for p in poses_cw]).astype(np.float32)
+    K = np.tile(np.array([[fx, 0, w - cx], [0, fy, cy], [0, 0, 1]], np.float32), (n, 1, 1))
+    T = np.linalg.inv(poses_cw).astype(np.float32)
+    return depth, K, T, np.ones(n, bool)
+
+
+def _invalid_frames(n: int):
+    """Chunk 0: frame 2 marked invalid, frame 5 without depth; chunk 1 all
+    marked invalid; chunk 2 valid frames without any depth."""
+    depth, K, T, valid = _box_room(n)
+    valid[2] = False
+    depth[5] = 0.0
+    valid[8:12] = False
+    depth[12:16] = 0.0
+    return depth, K, T, valid
+
+
+# case: (TSDFConfig overrides, chunks, frames, uint16 stream)
+_K5_CASES = {
+    "production_1cm_chunks": ({}, [(0, 10), (10, 20), (20, 30)], lambda: _box_room(30), False),
+    "several_windows": ({"chunk_active_capacity": 1000}, [(0, 10), (10, 20)],
+                        lambda: _box_room(20), False),
+    "invalid_frames": ({}, [(0, 8), (8, 12), (12, 16)], lambda: _invalid_frames(16), False),
+    "one_frame_chunks": ({}, [(0, 1), (1, 2), (2, 3)], lambda: _box_room(3), False),
+    "voxels_outside_their_patch": ({"voxel_size": 0.05, "grid_dim": 64, "block_count": 4096},
+                                   [(0, 10), (10, 20)], lambda: _box_room(20), False),
+    "u16_stream": ({}, [(0, 10), (10, 20)], lambda: _box_room(20), True),
+}
+
+
+def _k5_cfg(**overrides):
+    from mq3d_tpu_torch.config.configs import PRODUCTION_INTEGRATION
+
+    kw = {k: v for k, v in PRODUCTION_INTEGRATION.items() if k != "frames_per_batch"}
+    kw["block_count"] = 16384
+    kw.update(overrides)
+    return tsdf.TSDFConfig(**kw)
+
+
+def _integrate_case(cfg, frames, chunks, device, u16: bool) -> dict:
+    depth, K, T, valid = frames
+    vol = tsdf.TSDFVolume(cfg, device=device)
+    if u16:
+        dq, scale = tsdf.quantize_depth_u16(depth, cfg.depth_max)
+        stack = [torch.from_numpy(np.stack([a[c0:c1] for c0, c1 in chunks])).to(device)
+                 for a in (dq, K, T, valid)]
+        tsdf.integrate_chunks_u16(cfg, vol.state, stack[0], scale, *stack[1:])
+    else:
+        for c0, c1 in chunks:
+            vol.integrate(depth[c0:c1], K[c0:c1], T[c0:c1], valid[c0:c1])
+    return tsdf.state_to_numpy(vol.state)
+
+
+def _same_state(got: dict, want: dict) -> None:
+    for k in want:
+        a, b = np.atleast_1d(got[k]), np.atleast_1d(want[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), k
+
+
+def _watch_k5(monkeypatch) -> list:
+    """Run integrate_chunk's K5 calls with synchronizing operations raising
+    (torch.cuda.set_sync_debug_mode); returns the list of their window
+    sizes, filled as they run."""
+    sizes = []
+
+    def watched(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            integrate_window(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sizes.append(args[8].numel())
+
+    monkeypatch.setattr(tsdf, "integrate_window", watched)
+    return sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_K5_CASES))
+def test_k5_volume_equals_the_tile_path(cuda_device, monkeypatch, case):
+    overrides, chunks, make_frames, u16 = _K5_CASES[case]
+    cfg = _k5_cfg(**overrides)
+    frames = make_frames()
+    sizes = _watch_k5(monkeypatch)
+    _build.reset_launch_counts()
+    reset_window_pair_count()
+    got = _integrate_case(cfg, frames, chunks, cuda_device, u16)
+    launches, pairs = _build.launch_counts(), window_pair_count()
+    monkeypatch.undo()
+    assert int(got["n_active"]) > 0 and pairs > 0
+    assert launches["tsdf_window"] == sum(n > 0 for n in sizes) > 0
+    assert launches["patch_lookup"] == 0
+    if case == "several_windows":
+        assert len(sizes) > len(chunks)
+    if case == "invalid_frames":
+        assert 0 in sizes  # the chunk with no valid frame launched nothing
+    tsdf.reset_lookup_tile_counts()
+    tiles = _integrate_case(dataclasses.replace(cfg, depth_lookup="pallas"), frames, chunks,
+                            cuda_device, u16)
+    if case == "voxels_outside_their_patch":  # tiles the tile path gathered flat
+        assert tsdf.lookup_tile_counts()["over"] > 0
+    _same_state(got, tiles)
+    _same_state(got, _integrate_case(cfg, frames, chunks, "cpu", u16))
+
+
+@pytest.mark.cuda
+def test_k5_in_an_nccl_world_of_one_equals_the_tile_path(cuda_device):
+    from mq3d_tpu_torch.parallel.dist import spawn_ranks
+
+    _build.library()
+    cfg, (depth, K, T, valid), jobs = _sharded_jobs(8)
+    (res,), = spawn_ranks("mq3d_tpu_torch.parallel.dryrun:rank_run", 1, "nccl", "cuda", jobs,
+                          timeout_s=600)
+    launches = res["modes"]["replicated"]["launches"]
+    assert launches["tsdf_window"] > 0 and launches["patch_lookup"] == 0
+    vol = tsdf.TSDFVolume(dataclasses.replace(cfg, depth_lookup="pallas"), device=cuda_device)
+    for s in (0, 8):
+        vol.integrate(depth[s:s + 8], K[s:s + 8], T[s:s + 8], valid[s:s + 8])
+    n = vol.n_active
+    a = res["arrays"]
+    assert res["n_active"] == n > 0
+    assert np.array_equal(a["slot_table"], vol.state.slot_table.cpu().numpy())
+    for k in ("block_coords", "tsdf", "weight"):
+        want = getattr(vol.state, k)[:n].cpu().numpy()
+        assert np.array_equal(a[k].view(np.uint8), want.view(np.uint8)), k
