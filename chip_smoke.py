@@ -13,7 +13,7 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      scalar paths), with times and byte bounds; K3 in both out-of-range
      modes at every table size of the gather probe and at 0.125 MB, on
      in-range and out-of-range indices; the timer's floor (an empty
-     launch); K4 (`_fma`) as bits against its plain version on tie,
+     launch); K4 (`fma`) as bits against its plain version on tie,
      near-tie and special-value triples and at step 1's full-size and a
      Phase B tile's layouts, timed there with its byte bound; bgr_to_gray
      on the card against the CPU over all 2^24 BGR triples; the gather
@@ -22,7 +22,7 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      before and read just after)
   3. the main path: a synthetic capture at Quest scale through
      run_full_pipeline with the production TSDF settings (launch counts
-     reset just before, read just after; every `_fma` call on the card
+     reset just before, read just after; every `fma` call on the card
      counted, and each must have launched K4: share 1.0; K5 once a window
      with blocks, K1 not at all, K5's pairs, each through the flat fetch);
      check_k5 on the run's first window, saved during the run: K5
@@ -464,7 +464,7 @@ def _fma_bytes(a, b, c) -> int:
 
 
 def check_k4(rng) -> dict:
-    """K4 (`ops.tsdf._fma` on the card) against its plain version, as bits
+    """K4 (`ops.fma.fma` on the card) against its plain version, as bits
     (NaN as NaN), on tie, near-tie and special-value triples and at the main
     path's layouts, each launching K4 once; timed with its byte bound and
     the plain version at step 1's full-size shape (16 references x 20
@@ -482,16 +482,16 @@ def check_k4(rng) -> dict:
 
     def kernel(a, b, c):
         before = _build.launch_counts()["fma"]
-        out = tsdf_ops._fma(a, b, c)
+        out = fma_ops.fma(a, b, c)
         torch.cuda.synchronize()
         if _build.launch_counts()["fma"] != before + 1:
-            raise AssertionError("_fma on the card did not launch K4 once")
+            raise AssertionError("fma on the card did not launch K4 once")
         return out
 
     for name, arrays in (("ties", tie_triples(4099)), ("specials", special_triples(1 << 18))):
         a, b, c = (torch.from_numpy(x).cuda() for x in arrays)
-        same_bits(kernel(a, b, c), tsdf_ops._fma_plain(a, b, c), name)
-        same_bits(kernel(a[1:], b[1:], c[1:]), tsdf_ops._fma_plain(a[1:], b[1:], c[1:]),
+        same_bits(kernel(a, b, c), fma_ops.fma_plain(a, b, c), name)
+        same_bits(kernel(a[1:], b[1:], c[1:]), fma_ops.fma_plain(a[1:], b[1:], c[1:]),
                   f"{name}, unaligned")
 
     def randn(*shape):
@@ -507,9 +507,9 @@ def check_k4(rng) -> dict:
                        ("Phase B tile, 512x4096", tile)):
         shape = torch.broadcast_shapes(*(t.shape for t in args))
         dense = [t.expand(shape).contiguous() for t in args]
-        same_bits(kernel(*args), tsdf_ops._fma_plain(*dense), what)
-        ms = time_ms(lambda: tsdf_ops._fma(*args))
-        plain_ms = time_ms(lambda: tsdf_ops._fma_plain(*args))
+        same_bits(kernel(*args), fma_ops.fma_plain(*dense), what)
+        ms = time_ms(lambda: fma_ops.fma(*args))
+        plain_ms = time_ms(lambda: fma_ops.fma_plain(*args))
         nbytes = _fma_bytes(*args)
         b_ms, b_by = bound(nbytes, 2 * int(np.prod(shape)))
         log(f"[phase 2] K4 fma at {what}: equal as bits; kernel {ms:.4f} ms, plain "
@@ -526,15 +526,15 @@ def check_k4(rng) -> dict:
             "library_ms": None, "shapes": rows}
 
 
-_FMA_MODULES = (tsdf_ops, confidence, icp, raycast, eval_metrics)
+_FMA_MODULES = (fma_ops, tsdf_ops, confidence, icp, raycast, eval_metrics)
 
 
 @contextlib.contextmanager
 def counting_fma_calls(counts: dict):
-    """Count each `_fma` call whose operands lie on the card and whose
+    """Count each `fma` call whose operands lie on the card and whose
     result is not empty (counts["card_calls"]; an empty one launches
     nothing), in every module that calls it."""
-    fma = tsdf_ops._fma
+    fma = fma_ops.fma
 
     def counted(a, b, c):
         if a.is_cuda and np.prod(fma_ops.broadcast_shape(a.shape, b.shape, c.shape)) > 0:
@@ -542,12 +542,12 @@ def counting_fma_calls(counts: dict):
         return fma(a, b, c)
 
     for m in _FMA_MODULES:
-        m._fma = counted
+        m.fma = counted
     try:
         yield counts
     finally:
         for m in _FMA_MODULES:
-            m._fma = fma
+            m.fma = fma
 
 
 def probe_path() -> int:
@@ -645,7 +645,7 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
         f"{np.quantile(dist, 0.99):.5f} m; launches {launches}")
     fma_share = launches["fma"] / max(fma_calls.get("card_calls", 0), 1)
     log(f"[phase 3] K4: {launches['fma']} launches for {fma_calls.get('card_calls', 0)} "
-        f"_fma calls on the card, share {fma_share:.4f}")
+        f"fma calls on the card, share {fma_share:.4f}")
     log(f"[phase 3] K5: {launches['tsdf_window']} launches for {len(windows)} windows "
         f"({sum(n > 0 for n in windows)} with blocks); {pairs} (block, frame) pairs, every "
         f"one through the flat fetch")
@@ -664,7 +664,7 @@ def main_path(work: Path, scene: SyntheticSceneConfig):
             launches["tsdf_window"] == sum(n > 0 for n in windows),
         "K1 off the main path": launches["patch_lookup"] == 0,
         "K2 launched": launches["i420_to_bgr"] > 0,
-        "every _fma on the card launched K4":
+        "every fma on the card launched K4":
             launches["fma"] > 0 and launches["fma"] == fma_calls.get("card_calls"),
     }
     failed = [k for k, ok in checks.items() if not ok]

@@ -8,8 +8,8 @@
 // Replaces no Pallas kernel.  It stands for XLA's fused multiply-add: the
 // JAX package's projections, merge, ray march, ICP distances and the
 // evaluation's dot products compile `a*b + c` to one FMA, and
-// mq3d_tpu_torch/ops/tsdf.py `_fma` reproduces it.  Its plain version there
-// (`_fma_plain`) emulates the single rounding in float64, about 17
+// mq3d_tpu_torch/ops/fma.py `fma` reproduces it.  Its plain version there
+// (`fma_plain`) emulates the single rounding in float64, about 17
 // elementwise passes and 318 bytes an element; the hardware instruction is
 // correctly rounded by definition, so one pass gives the same bits.
 // `__fmaf_rn` is spelled out so the result does not depend on -fmad, and

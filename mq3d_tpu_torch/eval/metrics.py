@@ -9,8 +9,8 @@ brute force, |s|^2 + |t|^2 - 2 s.t, on `device` instead of KD-trees.
 The distances equal the JAX build's bit for bit on every device: XLA's CPU
 code forms the squared norms and the 3-term dot product as fused
 multiply-add chains, fma(z, z', fma(y, y', x x')), and then
-(|s|^2 + |t|^2) - 2 s.t; here each fused multiply-add is ops/tsdf.py's
-correctly rounded `_fma` and the square root is taken in float64, so no
+(|s|^2 + |t|^2) - 2 s.t; here each fused multiply-add is ops/fma.py's
+correctly rounded `fma` and the square root is taken in float64, so no
 TF32 matmul setting of the caller and no contraction choice of a compiler
 touches the result.
 """
@@ -24,13 +24,13 @@ import numpy as np
 import torch
 
 from mq3d_tpu_torch.device import resolve_device
-from mq3d_tpu_torch.ops.tsdf import _fma
+from mq3d_tpu_torch.ops.fma import fma
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a . b over the last axis (size 3) as XLA's CPU code contracts it:
     fma(a2, b2, fma(a1, b1, a0 * b0)), broadcasting a against b."""
-    return _fma(a[..., 2], b[..., 2], _fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def nearest_distances(src: np.ndarray, tgt: np.ndarray, tile: Optional[int] = None,
@@ -43,7 +43,7 @@ def nearest_distances(src: np.ndarray, tgt: np.ndarray, tile: Optional[int] = No
     block and pads its last source tile with 1e9; here the last tile is
     just shorter, which changes no other row).  The default block is
     4096 x 4096 on the card (fewer, larger launches) and 256 x 1024 on the
-    CPU, where `_fma`'s float64 temporaries then stay in cache (about 5x
+    CPU, where `fma`'s float64 temporaries then stay in cache (about 5x
     faster there than 4096 x 4096); the result does not depend on it."""
     src = np.asarray(src, np.float32)
     tgt = np.asarray(tgt, np.float32)

@@ -24,14 +24,14 @@ into place with ``os.replace`` (``build_into``), so builds that start
 together in several processes each load a whole library, and the typed
 load cached once per process (``load_typed``, ``LazyLibrary``).
 
-Launch counts: each wrapper calls ``count_launch(name)`` where it launches
-its kernel and nowhere else, so a run can show that its main path went
-through the kernels (``reset_launch_counts`` / ``launch_counts``).
-
-``launch_record(name)`` wraps a ctypes launch in an operator-scope profiler
-record, as PyTorch's own operators are: torch.profiler then links the
-kernel to it, and through it to the program's spans around the call (a
-launch outside every operator is linked to nothing).
+Every wrapper launches its kernel through ``launch(name, device, *args)``:
+the C entry point ``mq3d_<name>`` on the device's current stream, inside
+the operator-scope profiler record ``mq3d::<name>`` (``launch_record``), as
+PyTorch's own operators are, so torch.profiler links the kernel to it and
+through it to the program's spans around the call (a launch outside every
+operator is linked to nothing); then its error is checked and the launch
+counted, so a run can show that its main path went through the kernels
+(``reset_launch_counts`` / ``launch_counts``).
 """
 
 from __future__ import annotations
@@ -259,3 +259,17 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel `name`: mq3d_<name>(*args, stream) on `device`'s
+    current stream inside the record "mq3d::<name>", then raise on its
+    error and count the launch."""
+    import torch
+
+    fn = getattr(library(), f"mq3d_{name}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with launch_record(f"mq3d::{name}"):
+        err = fn(*args, stream)
+    check(err, name)
+    count_launch(name)

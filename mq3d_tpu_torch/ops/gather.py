@@ -80,10 +80,6 @@ def gather(table: torch.Tensor, idx: torch.Tensor, mode: str = "fill") -> torch.
     out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
     if out.numel() == 0:  # nothing to launch
         return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = lib.mq3d_gather(table.data_ptr(), table.numel(), idx.data_ptr(),
-                          out.data_ptr(), idx.numel(), MODES[mode], stream)
-    _build.check(err, "gather")
-    _build.count_launch("gather")
+    _build.launch("gather", table.device, table.data_ptr(), table.numel(), idx.data_ptr(),
+                  out.data_ptr(), idx.numel(), MODES[mode])
     return out

@@ -23,7 +23,7 @@ the JAX package's source-tiled variants exist only for a TPU lane-width
 limit.  Batches are cut by max_stack_bytes of stacked sources.
 
 Arithmetic follows XLA's CPU code: the transforms are
-`ops.tsdf._apply_pose`, the Voronoi scatter's cell centres and squared
+`ops.fma.apply_pose`, the Voronoi scatter's cell centres and squared
 distances are fused multiply-add chains (its ids equal the JAX
 package's), the query's squared distances take the chain XLA uses most
 (`_d2`; on voxel-lattice clouds near-ties then break the same way), and
@@ -41,7 +41,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from mq3d_tpu_torch.ops.tsdf import _apply_pose, _fma, _sqrt, _to_i32
+from mq3d_tpu_torch.ops.fma import apply_pose, fma, sqrt_rn, to_i32
 from mq3d_tpu_torch.parallel.dist import all_gather, rank_slice, world_of
 
 # Iterations between the host's tests of whether any source still runs.
@@ -155,14 +155,14 @@ def _d2(px, py, pz, t, ti):
     CPU code contracts dx^2 + dy^2 + dz^2 most often:
     fma(dz, dz, fma(dx, dx, dy * dy))."""
     dx, dy, dz = px - t[ti, 0], py - t[ti, 1], pz - t[ti, 2]
-    return _fma(dz, dz, _fma(dx, dx, dy * dy))
+    return fma(dz, dz, fma(dx, dx, dy * dy))
 
 
 def _query_cells(p, gmin, dims, cell):
     """The 8 cells around each point: yields (ok, lin) per cell, lin
     clamped to 0 where the cell lies outside the grid."""
     rel = (p - gmin) / cell
-    base = _to_i32(torch.floor(rel - 0.5))
+    base = to_i32(torch.floor(rel - 0.5))
     n_cells = dims[..., 0] * dims[..., 1] * dims[..., 2]
     for dx in range(2):
         for dy in range(2):
@@ -197,7 +197,7 @@ def _nn_query(p, grid: GridNN):
             better = d2 < best_d2
             best_d2 = torch.where(better, d2, best_d2)
             best_i = torch.where(better, ti, best_i)
-    return best_i, _sqrt(best_d2)
+    return best_i, sqrt_rn(best_d2)
 
 
 def _cell(grid, like: torch.Tensor) -> torch.Tensor:
@@ -248,11 +248,11 @@ def _voro_scatter(pts, gmin, dims, cell, n_cells_pad: int):
     and the result does not depend on the scatter order.  Cells past the
     field are dropped, as XLA drops them."""
     dev = pts.device
-    keys = _to_i32(torch.floor((pts - gmin) / cell))
+    keys = to_i32(torch.floor((pts - gmin) / cell))
     cells = keys[:, None, :] + torch.from_numpy(_NEIGH27).to(dev)[None]  # (m, 27, 3)
-    centers = _fma(cells.float() + 0.5, cell, gmin)
+    centers = fma(cells.float() + 0.5, cell, gmin)
     d = pts[:, None, :] - centers
-    d2 = _fma(d[..., 2], d[..., 2], _fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
+    d2 = fma(d[..., 2], d[..., 2], fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
     lin = ((cells[..., 0] * dims[1] + cells[..., 1]) * dims[2] + cells[..., 2]).long()
     m = pts.shape[0]
     ids = torch.arange(m, dtype=torch.int64, device=dev)[:, None].expand(m, 27)
@@ -310,7 +310,7 @@ def _nn_query_voro(p, grid: VoroNN):
         better = d2 < best_d2
         best_d2 = torch.where(better, d2, best_d2)
         best_i = torch.where(better, tis, best_i)
-    return best_i, _sqrt(best_d2)
+    return best_i, sqrt_rn(best_d2)
 
 
 def _query(p, grid):
@@ -348,7 +348,7 @@ def _inliers(src, n_src, T, grid, max_corr):
     (zero outside the inliers), the inlier mask and the distances, for
     sources src (B, N, 3) with n_src (B,) real points, poses T (B, 4, 4)
     float64 and per-source max_corr (B,) float32."""
-    p = _apply_pose(src, T.float()[:, None])
+    p = apply_pose(src, T.float()[:, None])
     idx, dist = _query(p, grid)
     n = src.shape[1]
     in_src = torch.arange(n, device=src.device)[None, :] < n_src[:, None]
@@ -394,7 +394,7 @@ def _horn_rotation(H):
 
 def _fitness_rmse(n_in, sse, n_src):
     fitness = (n_in.double() / n_src.clamp(min=1).double()).float()
-    rmse = _sqrt(sse / n_in.clamp(min=1).float())
+    rmse = sqrt_rn(sse / n_in.clamp(min=1).float())
     return fitness, rmse
 
 

@@ -11,7 +11,7 @@ The sum has a closed form, [[|q|^2 I - q q^T, skew(s)], [skew(s)^T, n I]]
 with s = sum q, so only n, sum q and sum q q^T are reduced (in float64),
 and no (H, W, 3, 6) Jacobian is formed; the JAX package forms it and
 bounds its memory with lax.map over 8 edges.  The correspondence test
-follows XLA's CPU arithmetic (`ops.tsdf._apply_pose`), so the counts and
+follows XLA's CPU arithmetic (`ops.fma.apply_pose`), so the counts and
 the loop gate equal the JAX package's.
 """
 
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mq3d_tpu_torch.ops.tsdf import _apply_pose, _norm3, _to_i32
+from mq3d_tpu_torch.ops.fma import apply_pose, norm3, to_i32
 
 # Edges per pass of odometry_information_matrix_batch: bounds its
 # (edges, H, W, 3) intermediates to a few hundred MB at 320x288.
@@ -46,14 +46,14 @@ def _information_stats(source_depth, target_depth, K, source_to_target,
     (n (E,) int64, sum q (E, 3) float64, sum q q^T (E, 3, 3) float64)."""
     h, w = source_depth.shape[-2:]
     src_ok = (source_depth > 0) & (source_depth <= depth_max)
-    p_t = _apply_pose(_unproject(source_depth, K), source_to_target[:, None, None])
+    p_t = apply_pose(_unproject(source_depth, K), source_to_target[:, None, None])
 
     z = p_t[..., 2]
     z_safe = torch.where(z > 0, z, torch.ones_like(z))
     u = K[0, 0] * p_t[..., 0] / z_safe + K[0, 2]
     v = K[1, 1] * p_t[..., 1] / z_safe + K[1, 2]
-    ui = _to_i32(torch.floor(u + 0.5))
-    vi = _to_i32(torch.floor(v + 0.5))
+    ui = to_i32(torch.floor(u + 0.5))
+    vi = to_i32(torch.floor(v + 0.5))
     in_img = (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h) & (z > 0)
 
     idx = (vi.clamp(0, h - 1) * w + ui.clamp(0, w - 1)).long()
@@ -62,7 +62,7 @@ def _information_stats(source_depth, target_depth, K, source_to_target,
 
     q = torch.stack([(ui.float() - K[0, 2]) * d_t / K[0, 0],
                      (vi.float() - K[1, 2]) * d_t / K[1, 1], d_t], dim=-1)
-    dist = _norm3(p_t - q)
+    dist = norm3(p_t - q)
     corr = src_ok & in_img & tgt_ok & (dist < dist_threshold)
 
     qd = torch.where(corr[..., None], q, torch.zeros((), device=q.device)).double().flatten(1, 2)

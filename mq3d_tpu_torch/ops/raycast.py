@@ -32,7 +32,7 @@ same state, since a step with no active lane changes nothing.  Arithmetic
 follows the XLA CPU build where it decides a sample: XLA turns x / c for a
 constant c into x * (1/c), so this module multiplies by float32
 reciprocals, and the fused multiply-adds of the ray positions, secants and
-edge tests go through `ops.tsdf._fma`.  Elsewhere the two builds may differ
+edge tests go through `ops.fma.fma`.  Elsewhere the two builds may differ
 in the last bit (tests/test_torch_raycast.py states the tolerances).
 """
 
@@ -45,13 +45,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mq3d_tpu_torch.ops.fma import fma
 from mq3d_tpu_torch.ops.tsdf import (
     _NEIGHBOR_OFFSETS,
     TSDFConfig,
     TSDFState,
     TSDFVolume,
     _block_keys,
-    _fma,
 )
 
 _SENTINEL = 2.0  # ext-table value for unobserved voxels (tsdf in [-1, 1])
@@ -147,7 +147,7 @@ def prepare_scene(cfg: TSDFConfig, state: TSDFState, n_bucket: int):
     c_hi = torch.where(in_range[:, None], coords, -big).amax(0) + 1
     bs, lo_pad, hi_pad = (torch.full((3,), x, dtype=torch.float32, device=dev)
                           for x in (R * vs, -vs, vs))
-    aabb = torch.stack([_fma(c_lo.float(), bs, lo_pad), _fma(c_hi.float(), bs, hi_pad)])
+    aabb = torch.stack([fma(c_lo.float(), bs, lo_pad), fma(c_hi.float(), bs, hi_pad)])
     return slot_dist, ext_flat, aabb
 
 
@@ -202,7 +202,7 @@ def _secant(ta, va, tb, vb):
     one = torch.ones((), dtype=torch.float32, device=va.device)
     f = torch.where(denom.abs() > 1e-12, va / torch.where(denom == 0, one, denom),
                     torch.full((), 0.5, dtype=torch.float32, device=va.device))
-    return _fma(torch.clamp(f, 0.0, 1.0), tb - ta, ta)
+    return fma(torch.clamp(f, 0.0, 1.0), tb - ta, ta)
 
 
 def _inv_norm(dirs):
@@ -214,7 +214,7 @@ def _inv_norm(dirs):
 
 def _at(origins, dirs, t):
     """origins + dirs * t (t broadcast over the last axis), fused."""
-    return _fma(dirs, t[..., None].expand_as(dirs), origins)
+    return fma(dirs, t[..., None].expand_as(dirs), origins)
 
 
 def _march(cfg: TSDFConfig, slot_dist, ext, n_bucket: int, origins, dirs, t_init,
@@ -284,9 +284,9 @@ def _refine(cfg: TSDFConfig, slot_dist, ext, n_bucket: int, origins, dirs, found
     lo = torch.clamp(ta - vt, min=0.0)
     hi = tb + vt
     w = torch.from_numpy(np.linspace(0.0, 1.0, n_samples).astype(np.float32)).to(dev)
-    ts = _fma((hi - lo)[:, None].expand(-1, n_samples), w[None, :].expand(len(lo), -1),
+    ts = fma((hi - lo)[:, None].expand(-1, n_samples), w[None, :].expand(len(lo), -1),
               lo[:, None].expand(-1, n_samples))  # (n, M)
-    p = _fma(dirs[:, None, :].expand(-1, n_samples, -1),
+    p = fma(dirs[:, None, :].expand(-1, n_samples, -1),
              ts[..., None].expand(-1, -1, 3), origins[:, None, :].expand(-1, n_samples, -1))
     v, ok = _trilinear(cfg, n_bucket, slot_dist, ext, p)  # (n, M)
 
@@ -463,9 +463,9 @@ def _render_frames(
         finite = torch.isfinite(z)
         invz = torch.where(finite, 1.0 / z, torch.zeros((), dtype=z.dtype, device=dev))
         m_half = torch.full_like(invz, -0.5)
-        d2u = _fma(m_half, _shift_clamped(invz, 1, 2) + _shift_clamped(invz, -1, 2),
+        d2u = fma(m_half, _shift_clamped(invz, 1, 2) + _shift_clamped(invz, -1, 2),
                    invz).abs()
-        d2v = _fma(m_half, _shift_clamped(invz, 1, 1) + _shift_clamped(invz, -1, 1),
+        d2v = fma(m_half, _shift_clamped(invz, 1, 1) + _shift_clamped(invz, -1, 1),
                    invz).abs()
         miss = (~finite).float()
         edge_p = (~finite) | (_max_pool3(miss) > 0) | (torch.maximum(d2u, d2v) > edge_eps)

@@ -25,17 +25,12 @@ Phase A and extraction are plain PyTorch here.  Phase B is K5 on the card
 ("auto"); the tile loop, plain PyTorch with K1 as the depth fetch of
 `depth_lookup="pallas"`, runs for CPU tensors and the explicit modes.
 
-Bit-exactness with the JAX build on the CPU.  XLA's CPU compiler contracts
-`a*b + c` into a fused multiply-add, so the reference's projection and
-merge are FMA chains.  `_fma` reproduces them exactly.  On the CPU its plain
-version `_fma_plain` emulates the single rounding: the float32 product is
-exact in float64, and the float64 sum is rounded to odd before it is
-rounded to float32, which gives the singly rounded fused result.  On the
-card it launches K4 (csrc/fma.cu, ops/fma.py), the hardware's correctly
-rounded fused multiply-add in one pass, so the port gives one answer on
-both devices.
-Divisions never take a Python scalar divisor: CUDA PyTorch turns x / s into
-x * (1/s), which is not the correctly rounded quotient.
+One chunk path serves every caller, the sharded step of
+parallel/sharded.py included: `_stage_chunk` is the only place a chunk is
+staged on the device and its poses inverted (`camera_to_world`), and
+Phase B's form is chosen only in `_window_sums` (a window's sums) and
+`_fuse_window` (sums and merge).  The arithmetic is XLA's CPU build's bit
+for bit: fused multiply-adds in its order, from ops/fma.py.
 
 Sums per block are taken in frame order without atomics (see
 `_accumulate_tile`, and K5's thread block per window block), so results do
@@ -45,7 +40,6 @@ not change from run to run.
 from __future__ import annotations
 
 import dataclasses
-import math
 from pathlib import Path
 from typing import Optional
 
@@ -55,11 +49,11 @@ from scipy.linalg import blas, lapack
 
 from mq3d_tpu_torch.dataio.ply import PointCloud, TriangleMesh
 from mq3d_tpu_torch.device import resolve_device
-from mq3d_tpu_torch.ops.fma import check_operands, fma_cuda
+from mq3d_tpu_torch.ops.fma import f32_scalar, fma, rotate_add
 from mq3d_tpu_torch.ops.mc_tables import CORNERS, build_tables, edge_owner
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
-from mq3d_tpu_torch.ops.tsdf_window import integrate_window
-from mq3d_tpu_torch.utils.log import span, substep
+from mq3d_tpu_torch.ops.tsdf_window import integrate_window, window_sums
+from mq3d_tpu_torch.utils.log import substep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,45 +189,30 @@ def camera_to_world(extrinsics_wc: np.ndarray) -> np.ndarray:
     return out
 
 
-def _fma_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c, correctly rounded, in plain PyTorch: the CPU path of
-    `_fma`, and its kernel's reference on the card.
-
-    The float32 product is exact in float64.  The float64 sum s = p + c is
-    rounded to odd: when its TwoSum error e is non-zero and the last
-    mantissa bit of s is 0, s steps one float64 ulp toward e.  A value
-    rounded to odd with 53 >= 24 + 2 bits rounds to float32 as the exact
-    sum would, so the result is the singly rounded one on every device.
-    Where s is inf or NaN, e is NaN and s is kept.  Every operand is made
-    float64 itself: by PyTorch's type promotion a float64 0-d `a` times a
-    float32 `b` with dimensions would be a float32 product."""
-    p, c = a.double() * b.double(), c.double()
-    s = p + c
-    bp = s - p
-    e = (p - (s - bp)).add_(c - bp)
-    step = (e.abs() > 0).logical_and_((s.view(torch.int64) & 1) == 0)
-    return torch.where(step, torch.nextafter(s, e * math.inf), s).float()
+def _as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """numpy array or tensor -> tensor of `dtype` on `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=dtype)
 
 
-def _fma(a, b, c) -> torch.Tensor:
-    """float32 a*b + c, correctly rounded, as XLA's fused multiply-add
-    computes it (see module doc): CUDA tensors launch K4
-    (`ops.fma.fma_cuda`), CPU tensors take `_fma_plain`.
-
-    Operands are float32 tensors on one device, broadcasting
-    (`ops.fma.check_operands`); anything else raises, a Python scalar too.
-    Under a profiler the call sits in a range named "fma"."""
-    with span("fma"):
-        check_operands(a, b, c)
-        if a.device.type == "cuda":
-            return fma_cuda(a, b, c)
-        return _fma_plain(a, b, c)
-
-
-def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-d float32 tensor on `like`'s device (a divisor that is not a
-    Python scalar; see module doc)."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+def _stage_chunk(depth, intrinsics, extrinsics_wc, frame_valid, device):
+    """(depth, K, T_wc, valid, T_cw) of a chunk on `device`, from numpy
+    arrays or tensors: float32 (C, H, W) depth, (C, 3, 3) intrinsics and
+    (C, 4, 4) world-to-camera poses, (C,) bool validity, and T_cw the
+    float32 inverse of the poses (`camera_to_world`, on the host).  Every
+    path of step 3 stages its chunks here (the uint16 stream dequantizes
+    its depth on the device first); a tensor already on `device` in its
+    dtype is taken as it is."""
+    if isinstance(extrinsics_wc, torch.Tensor):
+        T_wc_host = extrinsics_wc.detach().cpu().numpy()
+    else:
+        T_wc_host = extrinsics_wc = np.asarray(extrinsics_wc, np.float32)
+    return (_as_tensor(depth, torch.float32, device),
+            _as_tensor(intrinsics, torch.float32, device),
+            _as_tensor(extrinsics_wc, torch.float32, device),
+            _as_tensor(frame_valid, torch.bool, device),
+            torch.from_numpy(camera_to_world(T_wc_host)).to(device))
 
 
 # The 7 positive-neighbour block offsets whose faces, edges and corner
@@ -267,46 +246,6 @@ def _keys_to_coords(keys: torch.Tensor, G: int) -> torch.Tensor:
     y = (keys // G) % G - h
     z = keys % G - h
     return torch.stack([x, y, z], dim=-1).to(torch.int32)
-
-
-def _rotate_add(R: torch.Tensor, x, y, z, t):
-    """R[0]*x + R[1]*y + R[2]*z + t in the reference's FMA order:
-    fma(R2, z, fma(R0, x, R1*y)) + t."""
-    return _fma(R[2], z, _fma(R[0], x, R[1] * y)) + t
-
-
-def _apply_pose(p: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    """float32 p @ T[:3, :3].T + T[:3, 3] for points p (..., 3) and poses T
-    broadcastable to (..., 4, 4), in the order XLA's CPU dot takes it:
-    fma(p2, R_i2, fma(p1, R_i1, p0 * R_i0)) + t_i."""
-    out = [_fma(p[..., 2], T[..., i, 2], _fma(p[..., 1], T[..., i, 1], p[..., 0] * T[..., i, 0]))
-           + T[..., i, 3] for i in range(3)]
-    return torch.stack(out, dim=-1)
-
-
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
-    """float -> int32 as XLA converts: saturating to [INT_MIN, INT_MAX],
-    NaN -> 0.  A plain cast of an out-of-range float gives INT_MIN on the
-    CPU and saturates on the card."""
-    x = torch.nan_to_num(x, nan=0.0)
-    # 2147483520 is the largest float32 below 2^31.
-    out = x.clamp(-2.0 ** 31, 2147483520.0).to(torch.int32)
-    return torch.where(x >= 2.0 ** 31, torch.iinfo(torch.int32).max, out)
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """float32 sqrt, correctly rounded on every device.  The card's float32
-    sqrt is not (it is one ulp off the CPU's on some inputs); its float64
-    sqrt is, and rounding that to float32 keeps it correct
-    (53 >= 2 * 24 + 2)."""
-    return torch.sqrt(x.double()).float()
-
-
-def _norm3(v: torch.Tensor) -> torch.Tensor:
-    """float32 |v| over the last axis (size 3) as XLA's CPU reduction
-    contracts it: sqrt(fma(v2, v2, fma(v1, v1, v0 * v0))), elementwise, so
-    the same on every device."""
-    return _sqrt(_fma(v[..., 2], v[..., 2], _fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])))
 
 
 def _resolve_lookup(cfg: TSDFConfig, device: torch.device) -> str:
@@ -349,14 +288,14 @@ def _candidate_keys(cfg: TSDFConfig, depth, intrinsics, T_cw, frame_valid):
     pw = []
     for i in range(3):
         Ri = [T_cw[:, i, j][:, None, None] for j in range(3)]
-        acc = _fma(Ri[2], pz, _fma(Ri[1], py, Ri[0] * px))
+        acc = fma(Ri[2], pz, fma(Ri[1], py, Ri[0] * px))
         pw.append(acc + T_cw[:, i, 3][:, None, None])
     pw = torch.stack(pw, dim=-1)  # (C, hs, ws, 3)
 
     offs = (np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1], indexing="ij"), -1)
             .reshape(-1, 3).astype(np.float32) * cfg.trunc)
     cand = pw[:, :, :, None, :] + torch.from_numpy(offs).to(dev)
-    bcoord = torch.floor(cand / _scalar(cfg.block_size, cand)).to(torch.int32)
+    bcoord = torch.floor(cand / f32_scalar(cfg.block_size, cand)).to(torch.int32)
     keys = _block_keys(bcoord, G)
     return torch.where(valid_px[..., None], keys, torch.full_like(keys, G ** 3))
 
@@ -452,15 +391,15 @@ def _tile_observations(cfg: TSDFConfig, depth, intrinsics, Rwc, twc, bc, f,
     Rp = Rwc[f]  # (TP, 3, 3)
     tp_ = twc[f]
     rows = [[Rp[:, i, j, None] for j in range(3)] for i in range(3)]
-    xw = _rotate_add(rows[0], px, py, pz, tp_[:, 0, None])
-    yw = _rotate_add(rows[1], px, py, pz, tp_[:, 1, None])
-    z = _rotate_add(rows[2], px, py, pz, tp_[:, 2, None])
+    xw = rotate_add(rows[0], px, py, pz, tp_[:, 0, None])
+    yw = rotate_add(rows[1], px, py, pz, tp_[:, 1, None])
+    z = rotate_add(rows[2], px, py, pz, tp_[:, 2, None])
     one = torch.ones((), dtype=torch.float32, device=dev)
     rz = torch.reciprocal(torch.where(z > 0, z, one))
     fx, fy = intrinsics[f, 0, 0][:, None], intrinsics[f, 1, 1][:, None]
     cx, cy = intrinsics[f, 0, 2][:, None], intrinsics[f, 1, 2][:, None]
-    ui = torch.floor(_fma(fx * xw, rz, cx) + 0.5).to(torch.int32)
-    vi = torch.floor(_fma(fy * yw, rz, cy) + 0.5).to(torch.int32)
+    ui = torch.floor(fma(fx * xw, rz, cx) + 0.5).to(torch.int32)
+    vi = torch.floor(fma(fy * yw, rz, cy) + 0.5).to(torch.int32)
     in_img = (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H) & (z > 0)
 
     def flat_lookup():
@@ -477,12 +416,12 @@ def _tile_observations(cfg: TSDFConfig, depth, intrinsics, Rwc, twc, bc, f,
         # read 0.0, and those are exactly the voxels `ok` discards.
         ctr = (bc.float() + 0.5) * (R * cfg.voxel_size)
         c_rows = [[Rp[:, i, j] for j in range(3)] for i in range(3)]
-        cxw = _rotate_add(c_rows[0], ctr[:, 0], ctr[:, 1], ctr[:, 2], tp_[:, 0])
-        cyw = _rotate_add(c_rows[1], ctr[:, 0], ctr[:, 1], ctr[:, 2], tp_[:, 1])
-        czw = _rotate_add(c_rows[2], ctr[:, 0], ctr[:, 1], ctr[:, 2], tp_[:, 2])
+        cxw = rotate_add(c_rows[0], ctr[:, 0], ctr[:, 1], ctr[:, 2], tp_[:, 0])
+        cyw = rotate_add(c_rows[1], ctr[:, 0], ctr[:, 1], ctr[:, 2], tp_[:, 1])
+        czw = rotate_add(c_rows[2], ctr[:, 0], ctr[:, 1], ctr[:, 2], tp_[:, 2])
         crz = torch.reciprocal(torch.where(czw > 0, czw, one))
-        cu = torch.floor(_fma(fx[:, 0] * cxw, crz, cx[:, 0]) + 0.5).to(torch.int32)
-        cv = torch.floor(_fma(fy[:, 0] * cyw, crz, cy[:, 0]) + 0.5).to(torch.int32)
+        cu = torch.floor(fma(fx[:, 0] * cxw, crz, cx[:, 0]) + 0.5).to(torch.int32)
+        cv = torch.floor(fma(fy[:, 0] * cyw, crz, cy[:, 0]) + 0.5).to(torch.int32)
         y0 = torch.clamp(cv - PS // 2, 0, H - PS)
         x0 = torch.clamp(cu - PS // 2, 0, W - PS)
         in_patch = ((vi >= y0[:, None]) & (vi < y0[:, None] + PS)
@@ -563,9 +502,37 @@ def _merge_window(state: TSDFState, active_slots, sums, cnts):
     t_old = state.tsdf[active_slots]
     w_old = state.weight[active_slots]
     new_w = w_old + cnts
-    merged = _fma(t_old, w_old, sums) / torch.clamp(new_w, min=1.0)
+    merged = fma(t_old, w_old, sums) / torch.clamp(new_w, min=1.0)
     state.tsdf[active_slots] = torch.where(cnts > 0, merged, t_old)
     state.weight[active_slots] = new_w
+
+
+def _window_sums(cfg: TSDFConfig, state: TSDFState, depth, intrinsics, extrinsics_wc,
+                 frame_touched, wkeys, active_slots):
+    """(sums, cnts), each (n_window, R^3), of a capacity window's
+    observations over the chunk's frames, in frame order: K5's sums form
+    on the card ("auto"), else the tile loop.  Of the state it reads only
+    the block coordinates."""
+    lookup = _resolve_lookup(cfg, state.device)
+    if lookup == "window":
+        return window_sums(cfg, state.block_coords, depth, intrinsics, extrinsics_wc,
+                           frame_touched, wkeys, active_slots)
+    widx, f = _pairs_from_grid(frame_touched, wkeys)
+    return _integrate_pairs(cfg, depth, intrinsics, extrinsics_wc, state.block_coords,
+                            active_slots, widx, f, lookup)
+
+
+def _fuse_window(cfg: TSDFConfig, state: TSDFState, depth, intrinsics, extrinsics_wc,
+                 frame_touched, wkeys, active_slots) -> None:
+    """Fuse a capacity window into the state's voxel tables (in place): K5
+    in one launch on the card ("auto"), else `_window_sums`, then
+    `_merge_window`."""
+    if _resolve_lookup(cfg, state.device) == "window":
+        integrate_window(cfg, state.tsdf, state.weight, state.block_coords, depth,
+                         intrinsics, extrinsics_wc, frame_touched, wkeys, active_slots)
+        return
+    _merge_window(state, active_slots, *_window_sums(
+        cfg, state, depth, intrinsics, extrinsics_wc, frame_touched, wkeys, active_slots))
 
 
 def integrate_chunk(cfg: TSDFConfig, state: TSDFState, depth, intrinsics,
@@ -576,33 +543,24 @@ def integrate_chunk(cfg: TSDFConfig, state: TSDFState, depth, intrinsics,
 
     depth (C, H, W) float32 metric depth (0 = invalid), intrinsics (C, 3, 3)
     float32 with cx mirror-flipped, extrinsics_wc (C, 4, 4) float32
-    world-to-camera, frame_valid (C,) bool, all on the state's device.
-    `T_cw` is the float32 inverse of extrinsics_wc (default:
-    `camera_to_world(extrinsics_wc)` on the host).
+    world-to-camera, frame_valid (C,) bool.  Without `T_cw` (the float32
+    inverse of extrinsics_wc) `_stage_chunk` stages them on the state's
+    device and inverts the poses; with it they must lie there already.
 
     A block integrates against frame f iff f's depth touched it, which is
     Open3D's allocate-then-integrate per frame.  `block_skip` selects the
     capacity window of touched blocks (rank in (skip, skip + capacity]);
     windows over disjoint block ranges compose bit-identically to one
     unbounded pass, which TSDFVolume.integrate's auto-split relies on."""
-    dev = state.device
     if T_cw is None:
-        T_cw = torch.from_numpy(camera_to_world(
-            extrinsics_wc.detach().cpu().numpy())).to(dev)
+        depth, intrinsics, extrinsics_wc, frame_valid, T_cw = _stage_chunk(
+            depth, intrinsics, extrinsics_wc, frame_valid, state.device)
     G3 = cfg.grid_dim ** 3
     frame_touched = _frame_touch_grid(cfg, depth, intrinsics, T_cw, frame_valid)
     touched = frame_touched[:, :G3].any(dim=0)
     wkeys, active_slots = _alloc_and_window(cfg, state, touched, block_skip)
-    lookup = _resolve_lookup(cfg, dev)
-    if lookup == "window":
-        integrate_window(cfg, state.tsdf, state.weight, state.block_coords, depth,
-                         intrinsics, extrinsics_wc, frame_touched, wkeys, active_slots)
-        return state
-    widx, f = _pairs_from_grid(frame_touched, wkeys)
-    sums, cnts = _integrate_pairs(
-        cfg, depth, intrinsics, extrinsics_wc, state.block_coords,
-        active_slots, widx, f, lookup)
-    _merge_window(state, active_slots, sums, cnts)
+    _fuse_window(cfg, state, depth, intrinsics, extrinsics_wc, frame_touched, wkeys,
+                 active_slots)
     return state
 
 
@@ -633,9 +591,10 @@ def integrate_windows(cfg: TSDFConfig, state: TSDFState, one_pass) -> None:
 
 def integrate_chunks(cfg: TSDFConfig, state: TSDFState, depth, intrinsics,
                      extrinsics_wc, frame_valid) -> TSDFState:
-    """S chunks of C frames ((S, C, H, W) depth), one after another;
-    identical to S integrate_chunk calls (no auto-split: blocks past
-    cfg.chunk_active_capacity are counted in state.dropped_active)."""
+    """S chunks of C frames ((S, C, H, W) depth; numpy arrays or tensors),
+    one after another; identical to S integrate_chunk calls (no
+    auto-split: blocks past cfg.chunk_active_capacity are counted in
+    state.dropped_active)."""
     for s in range(depth.shape[0]):
         integrate_chunk(cfg, state, depth[s], intrinsics[s], extrinsics_wc[s],
                         frame_valid[s])
@@ -960,13 +919,6 @@ def fresh_integrate_extract(cfg: TSDFConfig, depth, intrinsics, extrinsics_wc,
 # ---------------------------------------------------------------------------
 
 
-def _as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
-    """numpy array or tensor -> tensor of `dtype` on `device`."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device=device, dtype=dtype)
-
-
 class TSDFVolume:
     """Handle around (TSDFConfig, TSDFState) with save/load/extraction.
 
@@ -1025,38 +977,27 @@ class TSDFVolume:
         window(s) until every touched block is integrated; the windows are
         disjoint block sets, so the result is bit-identical to a single
         unbounded pass and no observations are dropped."""
-        dev = self.device
-        c = depth.shape[0]
         if frame_valid is None:
-            frame_valid = np.ones(c, dtype=bool)
-        T_wc_host = (extrinsics_wc.detach().cpu().numpy()
-                     if isinstance(extrinsics_wc, torch.Tensor)
-                     else np.asarray(extrinsics_wc)).astype(np.float32)
-        args = (
-            _as_tensor(depth, torch.float32, dev),
-            _as_tensor(intrinsics, torch.float32, dev),
-            torch.from_numpy(T_wc_host).to(dev),
-            _as_tensor(frame_valid, torch.bool, dev),
-        )
-        T_cw = torch.from_numpy(camera_to_world(T_wc_host)).to(dev)
+            frame_valid = np.ones(depth.shape[0], dtype=bool)
+        *chunk, T_cw = _stage_chunk(depth, intrinsics, extrinsics_wc, frame_valid,
+                                    self.device)
         st = self.state
         self._state_version += 1
         if not auto_split:
-            integrate_chunk(self.cfg, st, *args, 0, T_cw)
+            integrate_chunk(self.cfg, st, *chunk, 0, T_cw)
             return self
         integrate_windows(self.cfg, st,
-                          lambda skip: integrate_chunk(self.cfg, st, *args, skip, T_cw))
+                          lambda skip: integrate_chunk(self.cfg, st, *chunk, skip, T_cw))
         return self
 
     def integrate_scan(self, depth, intrinsics, extrinsics_wc, frame_valid):
-        """Fuse an (S, C, H, W) group of S chunks (numpy arrays or tensors),
-        one integrate(..., auto_split=False) call per chunk.  No auto-split:
-        blocks a chunk touches past cfg.chunk_active_capacity are dropped
-        and counted in state.dropped_active, for the caller to check once
-        per group."""
-        for s in range(depth.shape[0]):
-            self.integrate(depth[s], intrinsics[s], extrinsics_wc[s], frame_valid[s],
-                           auto_split=False)
+        """Fuse an (S, C, H, W) group of S chunks (numpy arrays or tensors)
+        by `integrate_chunks`, as S integrate(..., auto_split=False) calls
+        would.  No auto-split: blocks a chunk touches past
+        cfg.chunk_active_capacity are dropped and counted in
+        state.dropped_active, for the caller to check once per group."""
+        self._state_version += 1
+        integrate_chunks(self.cfg, self.state, depth, intrinsics, extrinsics_wc, frame_valid)
         return self
 
     # -- persistence ---------------------------------------------------------------

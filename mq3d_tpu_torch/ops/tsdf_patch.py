@@ -72,11 +72,6 @@ def patch_lookup(patch: torch.Tensor, vi: torch.Tensor,
     out = torch.empty((TP, V), dtype=torch.float32, device=patch.device)
     if out.numel() == 0:  # nothing to launch
         return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(patch.device).cuda_stream
-    err = lib.mq3d_patch_lookup(
-        patch.data_ptr(), vi.data_ptr(), ui.data_ptr(), out.data_ptr(),
-        TP, PS, V, stream)
-    _build.check(err, "patch_lookup")
-    _build.count_launch("patch_lookup")
+    _build.launch("patch_lookup", patch.device, patch.data_ptr(), vi.data_ptr(),
+                  ui.data_ptr(), out.data_ptr(), TP, PS, V)
     return out

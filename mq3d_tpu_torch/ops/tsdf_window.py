@@ -1,21 +1,22 @@
 """K5: Phase B of TSDF integration for one capacity window, in one launch.
 
-`ops.tsdf.integrate_chunk` hands each capacity window to `integrate_window`
+`ops.tsdf._fuse_window` hands each capacity window to `integrate_window`
 when the volume lies on the card and `depth_lookup` is "auto": the
 hand-written kernel csrc/tsdf_window.cu projects every voxel of every
 window block into each frame that touched the block, in frame order,
 fetches the depth, sums the truncated signed distances and merges them
 into the voxel tables in place.  It equals the tile loop of
 `ops.tsdf._integrate_pairs` and `_merge_window` bit for bit (that loop is
-its reference, as `_fma_plain` is K4's), with one launch where the loop
+its reference, as `ops.fma.fma_plain` is K4's), with one launch where the loop
 makes about 220 host-launched operations a tile of 512 pairs, and with no
 host sync, host-built index or `(n_window, R^3)` buffer.
 
 The kernel reads the window's pairs from the chunk's touch grid
 (`frame_touched`, one row a frame), so no pair list is compacted first.
-`window_sums` is its other form, for a rank of the sharded step
-(parallel/sharded.py): the window's (sums, counts) over the rank's frames,
-which the ranks all-reduce before `_merge_window`.
+`window_sums` is its other form, which `ops.tsdf._window_sums` gives a
+rank of the sharded step (parallel/sharded.py): the window's (sums,
+counts) over the rank's frames, which the ranks all-reduce before
+`_merge_window`.
 
 Engagement counter: the (block, frame) pairs K5 integrated, every one
 through the flat fetch (K5 anchors no patch), are counted on the card.
@@ -157,14 +158,10 @@ def _launch(cfg, named: dict, sums_form: bool):
     dev = t["depth"].device
     tables = (None, None) if sums_form else (t["tsdf"].data_ptr(), t["weight"].data_ptr())
     sums = (out[0].data_ptr(), out[1].data_ptr()) if sums_form else (None, None)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with _build.launch_record("mq3d::tsdf_window"):
-        err = lib.mq3d_tsdf_window(
-            t["depth"].data_ptr(), t["intrinsics"].data_ptr(), t["extrinsics_wc"].data_ptr(),
-            t["frame_touched"].data_ptr(), t["frame_touched"].stride(0), t["wkeys"].data_ptr(),
-            t["slots"].data_ptr(), t["block_coords"].data_ptr(), *tables, *sums,
-            _counter(dev).data_ptr(), n, C, H, W, R, *map(float, scalars), stream)
-    _build.check(err, "tsdf_window")
-    _build.count_launch("tsdf_window")
+    _build.launch(
+        "tsdf_window", dev, t["depth"].data_ptr(), t["intrinsics"].data_ptr(),
+        t["extrinsics_wc"].data_ptr(), t["frame_touched"].data_ptr(),
+        t["frame_touched"].stride(0), t["wkeys"].data_ptr(), t["slots"].data_ptr(),
+        t["block_coords"].data_ptr(), *tables, *sums, _counter(dev).data_ptr(), n, C, H, W, R,
+        *map(float, scalars))
     return out

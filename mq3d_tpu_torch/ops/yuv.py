@@ -148,12 +148,8 @@ def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Te
     out = torch.empty((n, h, w, 3), dtype=torch.uint8, device=y.device)
     if out.numel() == 0:  # nothing to launch
         return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = lib.mq3d_i420_to_bgr(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), n, h, w, stream)
-    _build.check(err, "i420_to_bgr")
-    _build.count_launch("i420_to_bgr")
+    _build.launch("i420_to_bgr", y.device, y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), n, h, w)
     return out
 
 

@@ -13,9 +13,12 @@ tsdf' = (tsdf*w + obs)/(w+1) is a running mean of observations:
     from the same prior state (the host syncs of `_alloc_and_window` see
     identical inputs on every rank);
   * integration: each rank sums (obs, count) over its frames' pairs in the
-    window of touched blocks (K5's sums form on the card,
-    ops/tsdf_window.py::window_sums), and one sum-all-reduce merges the
-    windows before the shared merge formula.
+    window of touched blocks (`ops.tsdf._window_sums`: K5's sums form on
+    the card), and one sum-all-reduce merges the windows before the shared
+    merge formula.
+
+Each rank stages its slice of the chunk as the single-process path does
+(`ops.tsdf._stage_chunk`).
 
 The window sums are added across ranks in the backend's order, not in
 frame order, so a sharded volume matches a single-process one with
@@ -39,17 +42,13 @@ from mq3d_tpu_torch.ops.tsdf import (
     TSDFConfig,
     TSDFState,
     _alloc_and_window,
-    _as_tensor,
     _frame_touch_grid,
-    _integrate_pairs,
     _merge_window,
-    _pairs_from_grid,
-    _resolve_lookup,
-    camera_to_world,
+    _stage_chunk,
+    _window_sums,
     create_state,
     integrate_windows,
 )
-from mq3d_tpu_torch.ops.tsdf_window import window_sums
 from mq3d_tpu_torch.parallel.dist import (
     all_gather,
     all_reduce_,
@@ -93,12 +92,6 @@ def gather_partitioned(cfg: TSDFConfig, state: TSDFState, group) -> TSDFState:
         dropped_active=state.dropped_active)
 
 
-def _host_f32(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, np.float32)
-
-
 def sharded_integrate_step(cfg: TSDFConfig, group, partition_state: bool = False):
     """One-chunk integration step over the group: step(state, depth (C, H,
     W), intrinsics (C, 3, 3), extrinsics_wc (C, 4, 4), frame_valid (C,))
@@ -117,16 +110,9 @@ def sharded_integrate_step(cfg: TSDFConfig, group, partition_state: bool = False
     row0 = rank_of(group) * rows_local
 
     def step(state: TSDFState, depth, intrinsics, extrinsics_wc, frame_valid) -> TSDFState:
-        dev = state.device
         sl = rank_slice(depth.shape[0], group)
-        T_wc_host = _host_f32(extrinsics_wc)[sl]
-        depth_l = _as_tensor(depth[sl], torch.float32, dev)
-        K_l = _as_tensor(intrinsics[sl], torch.float32, dev)
-        valid_l = _as_tensor(frame_valid[sl], torch.bool, dev)
-        T_wc = torch.from_numpy(T_wc_host).to(dev)
-        T_cw = torch.from_numpy(camera_to_world(T_wc_host)).to(dev)
-        lookup = _resolve_lookup(cfg, dev)
-
+        depth_l, K_l, T_wc, valid_l, T_cw = _stage_chunk(
+            depth[sl], intrinsics[sl], extrinsics_wc[sl], frame_valid[sl], state.device)
         frame_touched = _frame_touch_grid(cfg, depth_l, K_l, T_cw, valid_l)
         touched = frame_touched[:, :G3].any(dim=0).to(torch.int32)
         touched = all_reduce_(touched, group) > 0  # union: count > 0 == any
@@ -135,13 +121,8 @@ def sharded_integrate_step(cfg: TSDFConfig, group, partition_state: bool = False
             wkeys, active_slots = _alloc_and_window(cfg, state, touched, block_skip)
             if active_slots.numel() == 0:  # the same on every rank
                 return
-            if lookup == "window":
-                sums, cnts = window_sums(cfg, state.block_coords, depth_l, K_l, T_wc,
-                                         frame_touched, wkeys, active_slots)
-            else:
-                widx, f = _pairs_from_grid(frame_touched, wkeys)
-                sums, cnts = _integrate_pairs(cfg, depth_l, K_l, T_wc, state.block_coords,
-                                              active_slots, widx, f, lookup)
+            sums, cnts = _window_sums(cfg, state, depth_l, K_l, T_wc, frame_touched, wkeys,
+                                      active_slots)
             all_reduce_(sums, group)
             all_reduce_(cnts, group)
             if partition_state:

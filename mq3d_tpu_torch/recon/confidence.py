@@ -8,14 +8,14 @@ the per-pixel 3D error is thresholded into consistent / valid counts.
 One batched tensor pass covers a block of reference frames and all of
 their neighbours at once, as (refs, neighbours, H, W) arrays; invalid
 pixels ride along masked.  The arithmetic follows XLA's CPU code: the
-pose transforms are its fused multiply-add chains (`ops.tsdf._apply_pose`)
+pose transforms are its fused multiply-add chains (`ops.fma.apply_pose`)
 and the bilinear blend one more chain, so the counts equal the JAX
 package's on nearly every pixel (tests/test_torch_confidence.py states the
 share).
 
 Under a profiler a call is the range "confidence.call", its phases the
 ranges "confidence.inputs", ".project", ".sample", ".error" and ".count"
-in that order, and each `_fma` inside them the range "fma"
+in that order, and each `fma` inside them the range "fma"
 (`utils.log.span`); step 1's read-back and writes are "confidence.readback"
 and "confidence.save".
 """
@@ -31,7 +31,7 @@ from mq3d_tpu_torch.device import resolve_device
 from mq3d_tpu_torch.models.camera import ConfidenceMap
 from mq3d_tpu_torch.models.side import Side
 from mq3d_tpu_torch.models.transforms import CoordinateSystem
-from mq3d_tpu_torch.ops.tsdf import _apply_pose, _fma, _norm3, _to_i32
+from mq3d_tpu_torch.ops.fma import apply_pose, fma, norm3, to_i32
 from mq3d_tpu_torch.utils.log import span
 
 
@@ -39,8 +39,8 @@ def _bilinear_depth(depth, u, v, depth_max: float):
     """Bilinear depth sample of `depth` (..., H, W) at (u, v) (..., H, W),
     valid only where all four taps are valid depths.  Returns (z, valid)."""
     h, w = depth.shape[-2:]
-    u0 = _to_i32(torch.floor(u))
-    v0 = _to_i32(torch.floor(v))
+    u0 = to_i32(torch.floor(u))
+    v0 = to_i32(torch.floor(v))
     u1 = u0 + 1
     v1 = v0 + 1
     inb = (u0 >= 0) & (u1 < w) & (v0 >= 0) & (v1 < h)
@@ -57,7 +57,7 @@ def _bilinear_depth(depth, u, v, depth_max: float):
     wb = (u - u0) * (v1 - v)
     wc = (u1 - u) * (v - v0)
     wd = (u - u0) * (v - v0)
-    z = _fma(wd, Id, _fma(wc, Ic, _fma(wb, Ib, wa * Ia)))
+    z = fma(wd, Id, fma(wc, Ic, fma(wb, Ib, wa * Ia)))
     return z, inb & taps_ok
 
 
@@ -89,8 +89,8 @@ def _pair_error(ref_depth, tgt_depth, K_ref, K_tgt, T_ref_cw, T_tgt_wc, T_tgt_cw
         px_valid = (z > 0) & (z <= depth_max)
         x = (u - cx_r) * z / fx_r
         y = (v - cy_r) * z / fy_r
-        p_world = _apply_pose(torch.stack([x, y, z], dim=-1), pose(T_ref_cw))
-        p_tgt = _apply_pose(p_world, pose(T_tgt_wc))
+        p_world = apply_pose(torch.stack([x, y, z], dim=-1), pose(T_ref_cw))
+        p_tgt = apply_pose(p_world, pose(T_tgt_wc))
         zt = p_tgt[..., 2]
         proj_ok = px_valid & (zt > 0) & (zt <= depth_max)
         zt_safe = torch.where(zt > 0, zt, torch.ones_like(zt))
@@ -105,8 +105,8 @@ def _pair_error(ref_depth, tgt_depth, K_ref, K_tgt, T_ref_cw, T_tgt_wc, T_tgt_cw
     with span("confidence.error"):
         xt = (ut - cx_t) * z_tgt / fx_t
         yt = (vt - cy_t) * z_tgt / fy_t
-        q_world = _apply_pose(torch.stack([xt, yt, z_tgt], dim=-1), pose(T_tgt_cw))
-        err = _norm3(p_world - q_world)
+        q_world = apply_pose(torch.stack([xt, yt, z_tgt], dim=-1), pose(T_tgt_cw))
+        err = norm3(p_world - q_world)
     return err, proj_ok & samp_ok
 
 

@@ -1,12 +1,12 @@
 """float32 triples (a, b, c) on which a fused multiply-add is easy to get
-wrong, for holding K4 (csrc/fma.cu) against `ops.tsdf._fma_plain` on the
-card (tests/test_torch_cuda.py, chip_smoke.py), made with numpy from a
-seed, and the comparison both hold K4 to.
+wrong, for holding K4 (csrc/fma.cu) against `ops.fma.fma_plain` on the
+card (tests/test_torch_cuda.py, chip_smoke.py) and `fma` against XLA on the
+CPU (tests/test_torch_fma.py), made with numpy from a seed, and the
+comparison the card's checks hold K4 to.
 
 `tie_triples`: a*b + c a hair off a float32 midpoint of c and its
 neighbour, on both sides and at both parities of c, plus near-ties one ulp
-of b away (the cases that a product rounded before the sum gets wrong;
-tests/test_torch_fma.py builds the same set for the CPU).
+of b away (the cases that a product rounded before the sum gets wrong).
 `special_triples`: each operand drawn from normal values over a wide
 exponent range, subnormals, tiny values whose products are subnormal,
 huge values whose products overflow, signed zeros, infinities and NaN.

@@ -15,8 +15,8 @@ memory, the L2 or neither, in both out-of-range modes, with vector and
 scalar indices; K4 on its vector path (contiguous or scalar operands,
 16-byte aligned) and its strided path with 32-bit indices and with 64-bit
 ones (an output past 2^31 elements, an operand reaching past 2^31), on
-ties, near-ties and special values, and step 1 with `_fma` on the card
-against the same call with `_fma` pointed at its plain version; K5's
+ties, near-ties and special values, and step 1 with `fma` on the card
+against the same call with `fma` pointed at its plain version; K5's
 volume against the tile loop's, on the card ("pallas") and on the CPU,
 over several chunks, several capacity windows, invalid and depthless
 frames, one-frame chunks, voxels outside their pair's patch, the uint16
@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from mq3d_tpu_torch.kernels import _build
+from mq3d_tpu_torch.ops import fma as fma_ops
 from mq3d_tpu_torch.ops import tsdf
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
@@ -190,7 +191,7 @@ def test_empty_inputs_launch_nothing(cuda_device):
     table = torch.zeros(16, dtype=torch.float32, device=cuda_device)
     assert gather(table, torch.zeros(0, dtype=torch.int32, device=cuda_device)).shape == (0,)
     empty = torch.zeros((3, 0), dtype=torch.float32, device=cuda_device)
-    assert tsdf._fma(empty, table[:1], table[0]).shape == (3, 0)
+    assert fma_ops.fma(empty, table[:1], table[0]).shape == (3, 0)
     window = {k: v.to(cuda_device) for k, v in _k5_operands().items()}
     window["wkeys"] = window["slots"] = torch.zeros(0, dtype=torch.int64, device=cuda_device)
     integrate_window(tsdf.TSDFConfig(block_resolution=4), **window)
@@ -207,14 +208,14 @@ def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
 
 def _plain(a, b, c):
     """The plain version on materialised operands of the broadcast shape."""
-    return tsdf._fma_plain(*(t.expand(torch.broadcast_shapes(a.shape, b.shape, c.shape))
+    return fma_ops.fma_plain(*(t.expand(torch.broadcast_shapes(a.shape, b.shape, c.shape))
                              .contiguous() for t in (a, b, c)))
 
 
 def _fma_kernel(a, b, c):
-    """tsdf._fma on the card, checked to launch K4 once."""
+    """fma on the card, checked to launch K4 once."""
     before = _build.launch_counts()["fma"]
-    out = tsdf._fma(a, b, c)
+    out = fma_ops.fma(a, b, c)
     torch.cuda.synchronize()
     assert _build.launch_counts()["fma"] == before + 1
     return out
@@ -237,16 +238,16 @@ def test_k4_kernel_matches_plain_on_hard_values(cuda_device, kind, n):
                   for _ in range(3)]
     a, b, c = (torch.from_numpy(x).to(cuda_device) for x in arrays)
     got = _fma_kernel(a, b, c)
-    _same_bits(got, tsdf._fma_plain(a, b, c))
-    _same_bits(got, tsdf._fma_plain(a.cpu(), b.cpu(), c.cpu()))
+    _same_bits(got, fma_ops.fma_plain(a, b, c))
+    _same_bits(got, fma_ops.fma_plain(a.cpu(), b.cpu(), c.cpu()))
     if kind == "specials":  # both strided paths too, on the same values
-        _same_bits(_fma_kernel(a[1:], b[1:], c[1:]), tsdf._fma_plain(a[1:], b[1:], c[1:]))
+        _same_bits(_fma_kernel(a[1:], b[1:], c[1:]), fma_ops.fma_plain(a[1:], b[1:], c[1:]))
         ev = slice(None, None, 2)
-        _same_bits(_fma_kernel(a[ev], b[ev], c[ev]), tsdf._fma_plain(a[ev], b[ev], c[ev]))
+        _same_bits(_fma_kernel(a[ev], b[ev], c[ev]), fma_ops.fma_plain(a[ev], b[ev], c[ev]))
 
 
 def _views(case: str, dev):
-    """Operands of each layout the call sites hand _fma (a, b, c)."""
+    """Operands of each layout the call sites hand fma (a, b, c)."""
     g = torch.Generator(device="cpu").manual_seed(4)
 
     def r(*shape):
@@ -254,7 +255,7 @@ def _views(case: str, dev):
 
     if case == "zero_dim":  # every operand 0-d, and 0-d b and c beside a full a
         return [(r(()), r(()), r(())), (r(33, 7), r(()), r(()))]
-    if case == "pose_scalar":  # _apply_pose in step 1: component views, pose scalars
+    if case == "pose_scalar":  # apply_pose in step 1: component views, pose scalars
         p = r(4, 1, 29, 31, 3)
         T = r(4, 5, 1, 1, 4, 4)
         return [(p[..., 1], T[..., 0, 1], r(4, 5, 29, 31)),
@@ -291,7 +292,7 @@ def test_k4_kernel_matches_plain_on_views(cuda_device, case):
 def test_k4_rejects_seven_dimensions(cuda_device):
     x = torch.randn(2, 3, 2, 3, 2, 3, 2, device=cuda_device)
     with pytest.raises(ValueError):
-        tsdf._fma(x, x.permute(6, 5, 4, 3, 2, 1, 0).contiguous().permute(6, 5, 4, 3, 2, 1, 0),
+        fma_ops.fma(x, x.permute(6, 5, 4, 3, 2, 1, 0).contiguous().permute(6, 5, 4, 3, 2, 1, 0),
                   x)
 
 
@@ -318,7 +319,7 @@ def test_k4_64_bit_indices(cuda_device):
     n = (1 << 31) + 5
     x, y, z = (torch.randn((), device=cuda_device) for _ in range(3))
     out = _fma_kernel(x.expand(n), y, z)
-    want = tsdf._fma_plain(x[None], y, z)
+    want = fma_ops.fma_plain(x[None], y, z)
     _same_bits(out[-7:], want.expand(7))
     assert bool((out.view(torch.int32) == want.view(torch.int32)).all())
 
@@ -326,18 +327,18 @@ def test_k4_64_bit_indices(cuda_device):
 @pytest.mark.cuda
 def test_k4_kernels_are_charged_to_the_fma_span(cuda_device):
     """Under a host-and-device profiler, benchmark.spans charges each K4
-    launch to the "fma" span of its `_fma` call (the launch's operator
+    launch to the "fma" span of its `fma` call (the launch's operator
     record links it), and nothing to no span."""
     from benchmark import spans
 
     a = torch.randn(8, 1000, device=cuda_device)
     b = torch.randn(8, 1, device=cuda_device)
-    tsdf._fma(a, b, a)  # the library built and loaded outside the trace
+    fma_ops.fma(a, b, a)  # the library built and loaded outside the trace
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(3):
-            tsdf._fma(a, b, a)
+            fma_ops.fma(a, b, a)
         torch.cuda.synchronize()
     st = spans.attribute(spans.collect_linked(prof))
     assert st["fma"]["opened"] == 3 and st["fma"]["events"] == 3
@@ -348,8 +349,8 @@ def test_k4_kernels_are_charged_to_the_fma_span(cuda_device):
 @pytest.mark.cuda
 def test_k4_in_step_1_equals_the_plain_version(cuda_device, monkeypatch, tmp_path):
     """confidence_for_refs on Quest-scale depth (320x288) of the synthetic
-    box room with _fma on the card, against the same call with every _fma
-    pointed at the plain version: identical maps, and every _fma of the
+    box room with fma on the card, against the same call with every fma
+    pointed at the plain version: identical maps, and every fma of the
     call launched K4."""
     from mq3d_tpu_torch.dataio.data_io import DataIO
     from mq3d_tpu_torch.models.side import Side
@@ -368,16 +369,16 @@ def test_k4_in_step_1_equals_the_plain_version(cuda_device, monkeypatch, tmp_pat
             for x in (depth, K, T_cw, np.linalg.inv(T_cw), valid)]
     args.append(torch.arange(len(depth), device=cuda_device))
     calls = []
-    fma = tsdf._fma
+    fma = fma_ops.fma
     counted = lambda *t: calls.append(1) or fma(*t)  # noqa: E731
-    monkeypatch.setattr(tsdf, "_fma", counted)
-    monkeypatch.setattr(confidence, "_fma", counted)
+    monkeypatch.setattr(fma_ops, "fma", counted)
+    monkeypatch.setattr(confidence, "fma", counted)
     _build.reset_launch_counts()
     kernel = confidence.confidence_for_refs(*args, 4.0, 0.08, 10)
     torch.cuda.synchronize()
     assert calls and _build.launch_counts()["fma"] == len(calls)
-    monkeypatch.setattr(tsdf, "_fma", tsdf._fma_plain)
-    monkeypatch.setattr(confidence, "_fma", tsdf._fma_plain)
+    monkeypatch.setattr(fma_ops, "fma", fma_ops.fma_plain)
+    monkeypatch.setattr(confidence, "fma", fma_ops.fma_plain)
     plain = confidence.confidence_for_refs(*args, 4.0, 0.08, 10)
     assert (plain[1] > 0).float().mean() > 0.5
     for k, p in zip(kernel, plain):

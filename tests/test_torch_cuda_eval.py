@@ -7,8 +7,8 @@ jax nor mq3d_tpu, so it runs on a machine with the card and no JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda_eval.py
 
 Tolerance: identical.  nearest_distances forms every term with correctly
-rounded float32 operations (its fused multiply-adds through ops/tsdf.py's
-`_fma`, the square root in float64), so the card and the CPU give the same
+rounded float32 operations (its fused multiply-adds through ops/fma.py's
+`fma`, the square root in float64), so the card and the CPU give the same
 bits, as the CPU gives the JAX package's (tests/test_torch_eval.py).
 """
 

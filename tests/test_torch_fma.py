@@ -1,4 +1,4 @@
-"""`mq3d_tpu_torch.ops.tsdf._fma` is the correctly rounded float32 a*b + c.
+"""`mq3d_tpu_torch.ops.fma.fma` is the correctly rounded float32 a*b + c.
 
 Held against XLA's fused multiply-add on the CPU (`jax.jit(lambda a, b, c:
 a*b + c)`, the expression the JAX package's projection and merge compile
@@ -14,7 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from mq3d_tpu_torch.ops.tsdf import _fma
+from mq3d_tpu_torch.ops.fma import fma
+from mq3d_tpu_torch.testing.fma_cases import tie_triples
 
 torch.set_num_threads(1)
 
@@ -23,7 +24,7 @@ _xla_fma = jax.jit(lambda a, b, c: a * b + c)
 
 def _port(a, b, c):
     t = [torch.from_numpy(np.asarray(x, np.float32)) for x in (a, b, c)]
-    return _fma(*t).numpy()
+    return fma(*t).numpy()
 
 
 def _xla(a, b, c):
@@ -46,31 +47,6 @@ def _exact(a, b, c):
                      for x, y, z in zip(a, b, c)], np.float32)
 
 
-def _tie_triples(n: int, seed: int = 1):
-    """Triples whose exact a*b + c lies a hair (below float64 resolution
-    for large j) off a float32 midpoint of c and its neighbour, on both
-    sides and at both parities of c, plus near-ties one ulp of b away."""
-    rng = np.random.default_rng(seed)
-    a, b, c = [], [], []
-    for _ in range(n):
-        cz = np.float32(rng.uniform(1, 2) * 2.0 ** rng.integers(-20, 40)
-                        * rng.choice([-1, 1]))
-        d = rng.choice([-1.0, 1.0])
-        nb = np.nextafter(cz, np.float32(d * np.inf))
-        m = abs(float(nb) - float(cz)) / 2  # half the spacing: a power of 2
-        j = int(rng.integers(12, 24))
-        k = 2.0 ** -j
-        if rng.random() < 0.5:
-            ai, bi = np.float32(d * m * (1 + k)), np.float32(1 - k)
-        else:
-            ai, bi = np.float32(d * m * (1 - k)), np.float32(1 + k)
-        if rng.random() < 0.25:
-            bi = np.nextafter(bi, np.float32(rng.choice([-1, 1]) * np.inf))
-        a.append(ai), b.append(bi), c.append(cz)
-    return (np.array(a, np.float32), np.array(b, np.float32),
-            np.array(c, np.float32))
-
-
 def test_roadmap_case():
     a = np.float32(64 * (1 + 2.0 ** -18))
     b = np.float32(1 - 2.0 ** -18)
@@ -84,7 +60,7 @@ def test_roadmap_case():
 
 
 def test_ties_match_xla_and_exact():
-    a, b, c = _tie_triples(600)
+    a, b, c = tie_triples(600)
     got = _port(a, b, c)
     xla = _xla(a, b, c)
     exact = _exact(a, b, c)

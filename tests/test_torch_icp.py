@@ -101,7 +101,7 @@ def test_nn_queries_match_jax(kind):
                                       jnp.asarray(g.ids), jnp.asarray(g.gmin),
                                       jnp.asarray(g.dims), jnp.float32(g.cell))
         grid = icp.build_voronoi_nn(tgt, 0.1, device="cpu").to("cpu")
-    p = icp._apply_pose(torch.from_numpy(src), torch.from_numpy(T).float())
+    p = icp.apply_pose(torch.from_numpy(src), torch.from_numpy(T).float())
     idx_t, d_t = icp._query(p, grid)
     idx_j, d_j = np.asarray(idx_j)[:n], np.asarray(d_j)[:n]
     np.testing.assert_array_equal(idx_t.numpy(), idx_j)

@@ -7,6 +7,7 @@ system refuses those names, every module of mq3d_tpu_torch and chip_smoke
 must import.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -204,3 +205,60 @@ def test_stage_baselines_build_from_the_port_sources():
     for module in SLICE11_MODULES:
         path = REPO / (module.replace(".", "/") + ".py")
         assert "native/" not in path.read_text(), module
+
+
+# Phase B's form is chosen in ops/tsdf.py alone (`_window_sums`, `_fuse_window`).
+PHASE_B_CHOICE = {"_resolve_lookup", "_integrate_pairs", "_pairs_from_grid",
+                  "integrate_window", "window_sums"}
+# The XLA-order arithmetic lives in ops/fma.py: ops.tsdf holds none of it,
+# under its old private names or its new ones.
+ARITHMETIC = {"_fma", "_fma_plain", "_apply_pose", "_norm3", "_rotate_add", "_sqrt",
+              "_to_i32", "_scalar", "fma", "fma_plain", "apply_pose", "norm3",
+              "rotate_add", "sqrt_rn", "to_i32", "f32_scalar"}
+PORT_MODULES = sorted(p.relative_to(REPO).as_posix()
+                      for p in (REPO / "mq3d_tpu_torch").rglob("*.py"))
+
+
+def boundary_breaches(path: str, source: str) -> list:
+    """Imports and attribute reads in `source` (the port module `path`)
+    that cross step 3's or the arithmetic's one home."""
+    package = path[:-3].replace("/", ".").split(".")[:-1]
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else []
+            src = ".".join(base + ([node.module] if node.module else []))
+            for alias in node.names:
+                if src == "mq3d_tpu_torch.ops.tsdf" and alias.name in ARITHMETIC:
+                    bad.append(f"arithmetic {alias.name} from ops.tsdf")
+                if alias.name in PHASE_B_CHOICE and path != "mq3d_tpu_torch/ops/tsdf.py":
+                    bad.append(f"Phase B's {alias.name} imported from {src}")
+        elif (isinstance(node, ast.Attribute) and node.attr in PHASE_B_CHOICE
+              and path != "mq3d_tpu_torch/ops/tsdf.py"):
+            bad.append(f"Phase B's {node.attr} read as an attribute")
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_MODULES)
+def test_step3_chunk_path_and_arithmetic_have_one_home(path):
+    """No port module but ops/tsdf.py reaches Phase B's choice (the tile
+    loop's parts, K5's two forms, `_resolve_lookup`), and none takes the
+    XLA-order arithmetic from ops.tsdf: it comes from ops/fma.py."""
+    assert boundary_breaches(path, (REPO / path).read_text()) == []
+
+
+@pytest.mark.parametrize("line,path", [
+    ("from mq3d_tpu_torch.ops.tsdf import _fma\n", "mq3d_tpu_torch/eval/metrics.py"),
+    ("from mq3d_tpu_torch.ops.tsdf import _apply_pose, _norm3\n",
+     "mq3d_tpu_torch/ops/odometry.py"),
+    ("from .tsdf import fma\n", "mq3d_tpu_torch/ops/raycast.py"),
+    ("from mq3d_tpu_torch.ops.tsdf_window import window_sums\n",
+     "mq3d_tpu_torch/parallel/sharded.py"),
+    ("from mq3d_tpu_torch.ops.tsdf import _resolve_lookup, _integrate_pairs\n",
+     "mq3d_tpu_torch/parallel/sharded.py"),
+    ("x = tsdf_ops._pairs_from_grid\n", "mq3d_tpu_torch/parallel/dryrun.py"),
+])
+def test_the_boundary_check_sees_an_old_import(line, path):
+    """Each of the imports the check refuses, put back into its old module."""
+    assert boundary_breaches(path, line + (REPO / path).read_text())
+

@@ -20,7 +20,7 @@ from mq3d_tpu.ops.tsdf_pallas import patch_lookup as jax_patch_lookup
 from mq3d_tpu.ops.yuv import yuv420_to_8uc3 as jax_yuv420_to_8uc3
 from mq3d_tpu.ops.yuv_pallas import yuv420_to_bgr_pallas
 from mq3d_tpu_torch.kernels import _build
-from mq3d_tpu_torch.ops import tsdf
+from mq3d_tpu_torch.ops import fma as fma_ops
 from mq3d_tpu_torch.ops.fma import broadcast_shape, broadcast_strides, merge_layout
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
@@ -126,7 +126,7 @@ def test_cpu_calls_count_no_launch(rng):
     c = torch.zeros((1, 2, 2), dtype=torch.uint8)
     yuv420_to_bgr(y, c, c)
     gather(torch.zeros(8), torch.zeros(4, dtype=torch.int32))
-    tsdf._fma(torch.ones(4), torch.ones(4), torch.ones(4))
+    fma_ops.fma(torch.ones(4), torch.ones(4), torch.ones(4))
     assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0,
                                       "fma": 0, "tsdf_window": 0}
 
@@ -170,7 +170,7 @@ def test_build_sources_and_flags():
 ])
 def test_fma_rejects_what_it_does_not_take(bad, exc):
     with pytest.raises(exc):
-        tsdf._fma(*bad(torch.ones(3)))
+        fma_ops.fma(*bad(torch.ones(3)))
 
 
 @pytest.mark.parametrize("zero_dim", ["a", "ab", "c"])
@@ -187,21 +187,21 @@ def test_fma_plain_computes_in_float64_whichever_operand_is_0d(rng, zero_dim):
     if "c" in zero_dim:
         c = c[0, 0]
     full = [t.expand(64, 9).contiguous() for t in (a, b, c)]
-    got, want = tsdf._fma(a, b, c), tsdf._fma_plain(*full)
+    got, want = fma_ops.fma(a, b, c), fma_ops.fma_plain(*full)
     assert got.shape == want.shape == (64, 9)
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
 
 
 def test_fma_on_cpu_takes_the_plain_version(monkeypatch, rng):
-    """CPU tensors run `_fma_plain`, unchanged, and launch nothing."""
+    """CPU tensors run `fma_plain`, unchanged, and launch nothing."""
     calls = []
-    plain = tsdf._fma_plain
-    monkeypatch.setattr(tsdf, "_fma_plain", lambda *t: calls.append(t) or plain(*t))
-    monkeypatch.setattr(tsdf, "fma_cuda", lambda *t: pytest.fail("the kernel was called"))
+    plain = fma_ops.fma_plain
+    monkeypatch.setattr(fma_ops, "fma_plain", lambda *t: calls.append(t) or plain(*t))
+    monkeypatch.setattr(fma_ops, "fma_cuda", lambda *t: pytest.fail("the kernel was called"))
     _build.reset_launch_counts()
     a, b, c = (torch.from_numpy(rng.standard_normal((5, 7), dtype=np.float32))
                for _ in range(3))
-    got = tsdf._fma(a, b[:, :1], c)
+    got = fma_ops.fma(a, b[:, :1], c)
     assert len(calls) == 1 and calls[0][0] is a and calls[0][2] is c
     np.testing.assert_array_equal(got.numpy(), plain(a, b[:, :1], c).numpy())
     assert _build.launch_counts()["fma"] == 0
@@ -238,6 +238,39 @@ def test_launch_record_is_an_operator_inside_the_span():
     assert rng.is_user_annotation() and not op.is_user_annotation()
     assert rng.start_ns() <= op.start_ns()
     assert op.start_ns() + op.duration_ns() <= rng.start_ns() + rng.duration_ns()
+
+
+
+@pytest.mark.parametrize("name", ["patch_lookup", "i420_to_bgr", "gather", "fma", "tsdf_window"])
+def test_launch_calls_the_entry_in_its_record_then_counts(monkeypatch, name):
+    """`_build.launch` calls mq3d_<name>(*args, stream) on the device's
+    current stream inside the operator record "mq3d::<name>", then counts
+    the launch; a non-zero cudaError raises and counts nothing."""
+    import types
+
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        torch.ones(2).add_(1)  # an operator inside the record
+        return calls[-1][0]
+
+    lib = types.SimpleNamespace(**{f"mq3d_{name}": entry})
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=77))
+    _build.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _build.launch(name, torch.device("cuda"), 0, 5, 6)
+    assert calls == [(0, 5, 6, 77)]
+    ev = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    rec, op = ev[f"mq3d::{name}"], ev["aten::add_"]
+    assert rec.start_ns() <= op.start_ns()
+    assert op.start_ns() + op.duration_ns() <= rec.start_ns() + rec.duration_ns()
+    assert _build.launch_counts()[name] == 1
+    with pytest.raises(RuntimeError, match=f"{name} failed to launch: cudaError 3"):
+        _build.launch(name, torch.device("cuda"), 3)
+    assert _build.launch_counts()[name] == 1
 
 
 def _layout_offsets(sizes, strides):

@@ -2,7 +2,7 @@
 
 Under torch.profiler a `confidence_for_refs` call opens one
 "confidence.call" range holding its five phases in order and one "fma"
-range per `_fma` call; `estimate_depth_confidences` adds its read-back and
+range per `fma` call; `estimate_depth_confidences` adds its read-back and
 write ranges.  With no profiler running no range is opened at all, the
 `[Substep]` lines print as before, and the maps are the same bits either
 way.
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from mq3d_tpu_torch.ops import tsdf
+from mq3d_tpu_torch.ops import fma as fma_ops
 from mq3d_tpu_torch.recon import confidence
 from mq3d_tpu_torch.utils import log
 
@@ -60,15 +60,15 @@ def _profiled(fn):
 
 def test_a_call_opens_its_phases_in_order_and_one_fma_range_per_fma(monkeypatch):
     calls = []
-    fma = tsdf._fma
+    fma = fma_ops.fma
 
     def counted(*args):
         calls.append(1)
         return fma(*args)
 
-    # _apply_pose and _norm3 call the module's _fma; the bilinear blend its import.
-    monkeypatch.setattr(tsdf, "_fma", counted)
-    monkeypatch.setattr(confidence, "_fma", counted)
+    # apply_pose and norm3 call their module's fma; the bilinear blend its import.
+    monkeypatch.setattr(fma_ops, "fma", counted)
+    monkeypatch.setattr(confidence, "fma", counted)
     _, ranges = _profiled(lambda: _call(_inputs()))
     call = [r for r in ranges if r[0] == "confidence.call"]
     assert len(call) == 1
