@@ -48,10 +48,16 @@ Phases, one line each (flushed, so a cut run shows where it stopped):
      volume (volume cache on) through marching cubes, the mesh filter,
      colour-map optimisation (every 10th frame), point sampling and the
      color-aligned depth raycast (launch counts reset just before, read
-     just after: steps 4-6 have no hand kernel yet), with substep seconds,
-     mesh size, Gauss-Newton residuals, raycast ms per frame and peak
-     memory; the mesh must lie on the box walls and the rendered depth
-     must match the analytic box depth
+     just after: steps 4-5 have no hand kernel yet, step 6 runs K6, one
+     launch a pyramid level of each of the run's render calls), with
+     substep seconds, mesh size, Gauss-Newton residuals, raycast ms per
+     frame and peak memory; the mesh must lie on the box walls and the
+     rendered depth must match the analytic box depth; check_k6 on one
+     16-view call at 1280x960 of that volume: K6 bit-equal to the plain
+     march and refine on the card, one launch a level, no host sync in
+     the call, its counters, its device ms beside its compulsory-traffic
+     bound and its no-cache sector figure, and the call's ms with K6 and
+     with the plain path
   7. the shipped configuration at full width on the card: a Quest-scale
      capture of 200 frames per side of the room furnished with
      ROOM_CLUTTER through run_full_pipeline with
@@ -203,6 +209,15 @@ from mq3d_tpu_torch.ops.tsdf import TSDFVolume
 from mq3d_tpu_torch.ops.gather import MODES as gather_modes
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
 from mq3d_tpu_torch.ops.sampling import sample_points_uniformly
+from mq3d_tpu_torch.ops.ray_march import (
+    GATHERS_PER_SAMPLE,
+    GATHERS_PER_STEP,
+    SECTOR_BYTES,
+    march_base,
+    march_fine,
+    ray_march_counts,
+    reset_ray_march_counts,
+)
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.tsdf_window import (
     OPS_MERGE_VOXEL,
@@ -1048,11 +1063,24 @@ def colored_path(session: Path, scene: SyntheticSceneConfig, gn_path: Path):
         return gn_terms(*args)
 
     color_opt._gn_terms = keep_first_gn
+    # K6 launches once a pyramid level of each render call on the card.
+    render = raycast._render_frames
+    render_levels = []
+
+    def count_levels(*args):
+        if args[5].is_cuda:  # K
+            render_levels.append(len(raycast._pyramid_scales(args[10], args[11])))
+        return render(*args)
+
+    raycast._render_frames = count_levels
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        run = run_full_pipeline(session, configs, device="cuda")
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(out):
+            run = run_full_pipeline(session, configs, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        raycast._render_frames = render
     total = time.perf_counter() - t0
     launches = _build.launch_counts()
     color_opt._gn_terms = gn_terms
@@ -1062,7 +1090,14 @@ def colored_path(session: Path, scene: SyntheticSceneConfig, gn_path: Path):
     log(f"[phase 6] stage seconds: "
         + ", ".join(f"{k} {v:.2f}" for k, v in run.stage_seconds.items())
         + f"; total {total:.2f} s; peak device memory {peak_gb:.2f} GB; launches "
-        f"{launches} (steps 4-6 run plain PyTorch; K2/K5 of steps 0/3 ran in phase 3)")
+        f"{launches} (steps 4-5 run plain PyTorch, step 6 K6; K2/K5 of steps 0/3 ran in "
+        f"phase 3)")
+    k6_launches = launches.get("ray_march", 0)
+    log(f"[phase 6] K6: {k6_launches} launches for {len(render_levels)} render calls of "
+        f"{sum(render_levels)} pyramid levels in all")
+    if not 0 < k6_launches == sum(render_levels):
+        raise AssertionError(f"step 6 launched K6 {k6_launches} times for "
+                             f"{len(render_levels)} render calls of {sum(render_levels)} levels")
 
     checks, datasets = check_colored_outputs("phase 6", session, scene, printed,
                                              PRODUCTION_INTEGRATION["voxel_size"], sampled=True)
@@ -1104,11 +1139,191 @@ def colored_path(session: Path, scene: SyntheticSceneConfig, gn_path: Path):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"colored path checks failed: {failed}")
-    return (np.concatenate([ds.get_render_intrinsic_matrices() for ds in datasets.values()])
-            .astype(np.float32),
-            np.concatenate([ds.transforms.extrinsics_wc for ds in datasets.values()])
-            .astype(np.float32),
-            int(ds0.widths[0]), int(ds0.heights[0]))
+    views = (np.concatenate([ds.get_render_intrinsic_matrices() for ds in datasets.values()])
+             .astype(np.float32),
+             np.concatenate([ds.transforms.extrinsics_wc for ds in datasets.values()])
+             .astype(np.float32),
+             int(ds0.widths[0]), int(ds0.heights[0]))
+    k6 = check_k6(vol, *views)
+    k6.update(launches=k6_launches, render_calls=len(render_levels))
+    return views, k6
+
+
+def check_k6(vol: TSDFVolume, K, T_wc, width: int, height: int, n_views: int = 16) -> dict:
+    """K6 at the benchmark's shape: one render call of `n_views` views
+    (phase 6's keyframe views, repeated in order) at width x height of a
+    1 cm volume.  Its maps and overflow bit-equal to the plain march and
+    refine on the card; one K6 launch a pyramid level, no K4 launch but the
+    edge tests' two a fine level, no host sync inside the call; K6's
+    counters (lanes equal to the base pixels plus each fine level's
+    cap_p * f^2).  Times: each level's K6 launch from a cold L2, summed,
+    beside its bound, the compulsory traffic of k6_compulsory_bytes over
+    3.35 TB/s, and beside the time of its gathers at one 32-byte sector
+    each from HBM (2 a march step, 5 a refine sample, plus 4 bytes a
+    lane's depth; no cache serves any of them, so the L1 and L2 beat it);
+    the whole call with K6 and with the plain path (host clock,
+    synchronized).  Returns K6's row of the kernel table; phase 6 puts
+    its own run's K6 launches under `launches`."""
+    idx = np.arange(n_views) % len(K)
+    Kb, Tb = K[idx], T_wc[idx]
+
+    def call():
+        z, over = raycast._render_frames_device(vol, Kb, Tb, width, height)
+        torch.cuda.synchronize()
+        return z, over
+
+    call()  # the scene's preparation and the build, outside what is checked
+    saved = []
+
+    def keep_base(*args):
+        saved.append((march_base, args))
+        return march_base(*args)
+
+    def keep_fine(*args):
+        # A copy of the upsampled map it writes in place, for the timing.
+        saved.append((march_fine, args[:12] + (args[12].clone(),) + args[13:]))
+        return march_fine(*args)
+
+    render = raycast._render_frames
+
+    def no_sync(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return render(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    raycast.march_base, raycast.march_fine, raycast._render_frames = keep_base, keep_fine, no_sync
+    _build.reset_launch_counts()
+    reset_ray_march_counts()
+    try:
+        z, over = call()
+    finally:
+        raycast.march_base, raycast.march_fine = march_base, march_fine
+        raycast._render_frames = render
+    launches = _build.launch_counts()
+    counts = ray_march_counts()
+    with raycast._plain_path():
+        z_p, over_p = call()
+    scales = raycast._pyramid_scales(width, height)
+    levels = len(scales)
+    base_lanes = n_views * (height // scales[0]) * (width // scales[0])
+    fine_lanes = sum(a[9].numel() * a[8] ** 2 for fn, a in saved if fn is march_fine)
+    same = torch.equal(z.view(torch.int32), z_p.view(torch.int32))
+    checks = {
+        "maps bit-equal to the plain path": same,
+        "overflow equal": int(over) == int(over_p),
+        "one K6 launch a level": launches["ray_march"] == levels == len(saved),
+        "K4 only in the edge tests": launches["fma"] == 2 * (levels - 1),
+        "lanes counted": (counts["base"]["lanes"], counts["fine"]["lanes"])
+        == (base_lanes, fine_lanes),
+        "hits within lanes": all(0 < c["hits"] <= c["lanes"] for c in counts.values()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"K6 at {n_views} x {width}x{height}: failed {failed}; launches "
+                             f"{launches}, counts {counts}")
+    ms = sum(time_ms(lambda fn=fn, a=a: fn(*a)) for fn, a in saved)
+    samples = {"base": raycast._REFINE_SAMPLES_BASE + raycast._REFINE_ITERS_BASE,
+               "fine": raycast._REFINE_SAMPLES_FINE + raycast._REFINE_ITERS_FINE}
+    gathers = sum(GATHERS_PER_STEP * c["steps"] + GATHERS_PER_SAMPLE * c["hits"] * samples[k]
+                  for k, c in counts.items())
+    nbytes = gathers * SECTOR_BYTES + 4 * (base_lanes + fine_lanes)
+    s_ms, _ = bound(nbytes, 0)
+    per_level = k6_compulsory_bytes(call)
+    b_ms, b_by = bound(sum(per_level), 0)
+    call_ms = host_ms(call)
+    with raycast._plain_path():
+        plain_ms = host_ms(call, reps=3)
+    log(f"[phase 6] K6 ray_march, one call of {n_views} views at {width}x{height} (levels "
+        f"{scales}): maps and overflow ({int(over)} px) bit-equal to the plain march and refine "
+        f"on the card, no host sync inside the call; launches {launches}; counts {counts} "
+        f"(hit share base {counts['base']['hits'] / counts['base']['lanes']:.4f}, fine "
+        f"{counts['fine']['hits'] / max(counts['fine']['lanes'], 1):.4f}); K6 {ms:.4f} ms over "
+        f"its {levels} launches, bound {b_ms:.4f} ms ({b_by}: compulsory traffic "
+        f"{sum(per_level) / 1e6:.2f} MB, by level {[round(b / 1e6, 2) for b in per_level]}), "
+        f"{100 * b_ms / ms:.1f} % of it; with no cache, its {gathers} gathers at one "
+        f"{SECTOR_BYTES} B sector each from HBM ({nbytes / 1e6:.1f} MB) would take "
+        f"{s_ms:.4f} ms; the call {call_ms:.2f} ms with K6, {plain_ms:.2f} ms with the plain "
+        f"path (host clock)")
+    return {"name": "ray_march", "route": "cuda", "source": "mq3d_tpu_torch/csrc/ray_march.cu",
+            "replaces": "the JAX march's lax.while_loop and _refine (mq3d_tpu/ops/raycast.py "
+                        "_march :234, _refine :305)",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "compulsory_bytes": per_level,
+            "sector_ms": s_ms, "library_ms": None,
+            "launches_check_call": launches["ray_march"], "counts": counts}
+
+
+def k6_compulsory_bytes(call) -> list:
+    """Per pyramid level of one render call, the bytes that K6 cannot move
+    less of from a cold L2: each distinct 32-byte sector of the slot
+    distances and of the z-pair table that the level's lanes gather, read
+    once, and 4 bytes a depth written.  Found by running the plain march
+    and refine with their gathers recorded as K6 makes them: a lane's
+    march gathers while its t lies in its window (a lane that found its
+    bracket repeats its last gather, which adds no sector), its refine's
+    only if it found a bracket.  Every lane writes at the base level; a
+    fine level counts the lanes that take a step.  The reads of the rays'
+    inputs are left out, so it is a lower bound."""
+    at, sample_ids, march, refine = (raycast._at, raycast._sample_ids, raycast._march,
+                                     raycast._refine)
+    rec = {"mode": None, "seen": {}}  # seen: the sectors gathered, a bitmap a table
+    per_level = []
+    offsets = [(dx * raycast._EXT + dy) * raycast._EXT for dx in (0, 1) for dy in (0, 1)]
+
+    def mark(name, table, elems):
+        seen = rec["seen"].setdefault(name, torch.zeros(
+            table.numel() * table.element_size() // SECTOR_BYTES + 1, dtype=torch.bool,
+            device=table.device))
+        seen[elems * table.element_size() // SECTOR_BYTES] = True
+
+    def rec_march(cfg, slot_dist, ext, n_bucket, origins, dirs, t_init, t_min, t_max,
+                  max_iter):
+        rec.update(mode="march", ext=ext, t_hi=t_max, writes=None,
+                   all_write=not per_level, n=origins.shape[0])
+        return march(cfg, slot_dist, ext, n_bucket, origins, dirs, t_init, t_min, t_max,
+                     max_iter)
+
+    def rec_at(origins, dirs, t):
+        if rec["mode"] == "march":
+            rec["mask"] = t <= rec["t_hi"]
+            if rec["writes"] is None:
+                rec["writes"] = rec["n"] if rec["all_write"] else int(rec["mask"].sum())
+        return at(origins, dirs, t)
+
+    def rec_sample_ids(cfg, n_bucket, slot_dist, g):
+        idx, sd = sample_ids(cfg, n_bucket, slot_dist, g)
+        G = cfg.grid_dim
+        key = raycast._block_keys(torch.div(g, cfg.block_resolution, rounding_mode="floor"), G)
+        if rec["mode"] == "march":
+            mask, offs = rec["mask"], [0]
+        else:
+            found = rec["found"]
+            mask, offs = found.view(-1, *[1] * (idx.dim() - 1)).expand_as(idx), offsets
+        mark("slot", slot_dist, key[mask & (key < G ** 3)])
+        for off in offs:
+            mark("ext", rec["ext"], torch.clamp(idx[mask] + off, max=rec["ext"].numel() - 1))
+        return idx, sd
+
+    def rec_refine(cfg, slot_dist, ext, n_bucket, origins, dirs, found, *rest, **kw):
+        rec.update(mode="refine", found=found)
+        out = refine(cfg, slot_dist, ext, n_bucket, origins, dirs, found, *rest, **kw)
+        sectors = sum(int(seen.sum()) for seen in rec["seen"].values())
+        rec["seen"] = {}
+        per_level.append(sectors * SECTOR_BYTES + 4 * rec["writes"])
+        rec["mode"] = None
+        return out
+
+    raycast._at, raycast._sample_ids = rec_at, rec_sample_ids
+    raycast._march, raycast._refine = rec_march, rec_refine
+    try:
+        with raycast._plain_path():
+            call()
+    finally:
+        raycast._at, raycast._sample_ids = at, sample_ids
+        raycast._march, raycast._refine = march, refine
+    return per_level
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -2595,7 +2810,8 @@ def main() -> None:
 
         t0 = time.perf_counter()
         gn_path = work / "gn_inputs.pt"
-        views = colored_path(session, scene, gn_path)
+        views, k6 = colored_path(session, scene, gn_path)
+        kernels.append(k6)
         log(f"[phase 6] done in {time.perf_counter() - t0:.1f} s")
         capture = session
 

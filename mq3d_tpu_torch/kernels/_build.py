@@ -55,12 +55,14 @@ NVCC_FLAGS = (
 )
 
 # C entry points: name -> (restype, argtypes); each returns a cudaError_t.
-# P = pointer, I = int, L = pointer to long long, LL = long long, F = float.
+# P = pointer, I = int, L = pointer to long long, LL = long long, F = float,
+# FP = pointer to float.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.POINTER(ctypes.c_longlong)
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # (patch, vi, ui, out, TP, PS, V, stream)
     "mq3d_patch_lookup": (_I, (_P, _P, _P, _P, _I, _I, _I, _P)),
@@ -75,12 +77,18 @@ _SIGNATURES = {
     #  neg_trunc, trunc, inv_trunc, stream)
     "mq3d_tsdf_window": (_I, (_P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _F, _F, _F, _F, _F, _P)),
+    # (slot_dist, ext, aabb, K, Rcw, origin, ids_p, t0_p, t_hi_p, depth, counts,
+    #  n_lanes, cap_p, n_bucket, F, h, w, hp, wp, s, f, R, G, march_iters,
+    #  n_samples, n_iters, w_samples (host), vs, inv_vs, bs, trunc, band_min,
+    #  t_min, t_max, stream)
+    "mq3d_ray_march": (_I, (_P,) * 11 + (_LL,) * 3 + (_I,) * 12 + (_FP,) + (_F,) * 7
+                       + (_P,)),
 }
 
 _last_build_seconds: Optional[float] = None
 _last_build_report: str = ""
 _launches: Dict[str, int] = {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0, "fma": 0,
-                             "tsdf_window": 0}
+                             "tsdf_window": 0, "ray_march": 0}
 
 
 def launch_record(name: str):

@@ -25,19 +25,24 @@ budgets (see that module's docstring for the design and its measurements):
 Open3D's conventions hold: ray directions are the unnormalized
 K^-1 (u, v, 1), so t_hit is camera z-depth, and misses are inf.
 
-Everything is plain PyTorch on the volume's device.  XLA's `lax.while_loop`
-becomes a Python loop whose retired lanes freeze exactly as under XLA; the
-loop tests `active.any()` every `_LIVE_CHECK` steps, which ends it at the
-same state, since a step with no active lane changes nothing.  Arithmetic
-follows the XLA CPU build where it decides a sample: XLA turns x / c for a
-constant c into x * (1/c), so this module multiplies by float32
-reciprocals, and the fused multiply-adds of the ray positions, secants and
-edge tests go through `ops.fma.fma`.  Elsewhere the two builds may differ
+Each level's per-ray work, the march and the refine, runs by device:
+on a card it is one launch of K6 (`ops.ray_march`, csrc/ray_march.cu, one
+thread a lane); on the CPU it is plain PyTorch, which is K6's reference
+(`_plain_path` runs it on a card too).  Scene preparation, edge detection,
+upsampling and compaction are plain PyTorch on the volume's device.  In
+the plain path XLA's `lax.while_loop` becomes a Python loop whose retired
+lanes freeze exactly as under XLA; the loop tests `active.any()` every
+`_LIVE_CHECK` steps, which ends it at the same state, since a step with no
+active lane changes nothing.  Arithmetic follows the XLA CPU build where it
+decides a sample: XLA turns x / c for a constant c into x * (1/c), so this
+module multiplies by float32 reciprocals, and the fused multiply-adds of
+the ray positions, secants and edge tests go through `ops.fma.fma`.  Elsewhere the two builds may differ
 in the last bit (tests/test_torch_raycast.py states the tolerances).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import weakref
 from typing import Optional
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from mq3d_tpu_torch.ops.fma import fma
+from mq3d_tpu_torch.ops.ray_march import march_base, march_fine
 from mq3d_tpu_torch.ops.tsdf import (
     _NEIGHBOR_OFFSETS,
     TSDFConfig,
@@ -395,6 +401,105 @@ def _pyramid_scales(width: int, height: int) -> list:
     return scales
 
 
+def _ray_aabb_span(aabb, origins, dirs):
+    """Slab test against the active-block AABB in t units (t == z-depth).
+    t_exit < t_enter means the ray misses the volume."""
+    tiny = torch.where(dirs >= 0, _f32(1e-12, dirs), _f32(-1e-12, dirs))
+    inv = 1.0 / torch.where(dirs.abs() < 1e-12, tiny, dirs)
+    t1 = (aabb[0][None] - origins) * inv
+    t2 = (aabb[1][None] - origins) * inv
+    return (torch.minimum(t1, t2).amax(dim=-1), torch.maximum(t1, t2).amin(dim=-1))
+
+
+def _base_level_plain(cfg: TSDFConfig, scene, K, Rcw, origin, t_min: float, t_max: float,
+                      s0: int, h0: int, w0: int):
+    """The base level's (F, h0, w0) z-depth by the plain march and refine
+    (K6's reference; `ray_march.march_base` is its kernel)."""
+    slot_dist, ext, aabb, n_bucket = scene
+    F = K.shape[0]
+    vs = cfg.voxel_size
+    dirs = _ray_dirs(K, Rcw, s0, h0, w0).reshape(-1, 3)
+    origins = origin[:, None, None, :].expand(F, h0, w0, 3).reshape(-1, 3)
+    t_en, t_ex = _ray_aabb_span(aabb, origins, dirs)
+    t0 = torch.clamp(t_en - vs, min=t_min)
+    t_hi = torch.clamp(t_ex + vs, max=t_max)
+    found, ta, tb, va, vb = _march(cfg, slot_dist, ext, n_bucket, origins, dirs, t0,
+                                   t_min, t_hi, _BASE_MARCH_ITERS)
+    return _refine(cfg, slot_dist, ext, n_bucket, origins, dirs, found, ta, tb, va, vb,
+                   n_samples=_REFINE_SAMPLES_BASE,
+                   n_iters=_REFINE_ITERS_BASE).reshape(F, h0, w0)
+
+
+def _fine_level_plain(cfg: TSDFConfig, scene, K, Rcw, origin, t_min: float, t_max: float,
+                      s: int, f: int, ids_p, t0_p, t_hi_p, z_up):
+    """A fine level's edge lanes by the plain march and refine, written
+    into the upsampled map z_up (F, h_l, w_l); returns the level's map (K6's
+    reference; `ray_march.march_fine` is its kernel).  Lane l = phase *
+    cap_p + j is child `phase` of parent pixel ids_p[j] (n_pp: dead)."""
+    slot_dist, ext, aabb, n_bucket = scene
+    F, h_l, w_l = z_up.shape
+    h_p, w_p = h_l // f, w_l // f
+    n_pp = F * h_p * w_p
+    cap_p = ids_p.shape[0]
+    dev = z_up.device
+    vs = cfg.voxel_size
+    t_min_t = _f32(t_min, z_up)
+    ids_safe_p = torch.clamp(ids_p, max=n_pp - 1)
+    live_p = ids_p < n_pp
+
+    # f^2 child lanes, phase-major: lane l = phase * cap_p + j.
+    n_lanes = cap_p * f * f
+    lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
+    phase = lane // cap_p
+    j = lane % cap_p
+    idp = ids_safe_p[j]
+    live = live_p[j]
+    fidx = idp // (h_p * w_p)
+    pp = idp % (h_p * w_p)
+    py = (pp // w_p) * f + phase // f  # this level's pixel row
+    px = (pp % w_p) * f + phase % f
+    pyf = py.float() * s + (0.5 * s - 0.5)  # full-resolution coords
+    pxf = px.float() * s + (0.5 * s - 0.5)
+    Kf = K[fidx]
+    one = torch.ones((n_lanes,), dtype=torch.float32, device=dev)
+    dirs_e = _rotate(Rcw[fidx], (pxf - Kf[:, 0, 2]) / Kf[:, 0, 0],
+                     (pyf - Kf[:, 1, 2]) / Kf[:, 1, 1], one)
+    origins_e = origin[fidx]
+    # Dead lanes get a far bound below their start and retire at once;
+    # live lanes also clip to the AABB span.
+    t_en_e, t_ex_e = _ray_aabb_span(aabb, origins_e, dirs_e)
+    t0_e = torch.where(live, torch.maximum(t0_p[j], torch.maximum(t_en_e - vs, t_min_t)),
+                       t_min_t)
+    t_hi_e = torch.where(live, torch.minimum(t_hi_p[j], t_ex_e + vs),
+                         _f32(t_min - 1.0, z_up))
+    found, ta, tb, va, vb = _march(cfg, slot_dist, ext, n_bucket, origins_e, dirs_e,
+                                   t0_e, t_min, t_hi_e, _FINE_MARCH_ITERS)
+    t_hit_e = _refine(cfg, slot_dist, ext, n_bucket, origins_e, dirs_e, found, ta, tb,
+                      va, vb, n_samples=_REFINE_SAMPLES_FINE,
+                      n_iters=_REFINE_ITERS_FINE)
+    n_px = F * h_l * w_l
+    ids_full = (fidx * h_l + py) * w_l + px
+    zb = torch.cat([z_up.reshape(-1), z_up.new_zeros(1)])
+    zb[torch.where(live, ids_full, n_px)] = torch.where(live, t_hit_e, 0.0)
+    return zb[:n_px].view(F, h_l, w_l)
+
+
+# Set by `_plain_path`: the plain march and refine on every device.
+_plain_on_card = False
+
+
+@contextlib.contextmanager
+def _plain_path():
+    """Within it, every render runs the plain march and refine, on the card
+    too: K6's reference there (tests and chip_smoke)."""
+    global _plain_on_card
+    before, _plain_on_card = _plain_on_card, True
+    try:
+        yield
+    finally:
+        _plain_on_card = before
+
+
 def _render_frames(
     cfg: TSDFConfig, slot_dist, ext, aabb, n_bucket: int,
     K,  # (F, 3, 3) f32
@@ -404,40 +509,32 @@ def _render_frames(
 ):
     """The coarse-to-fine pyramid for a batch of frames.  Returns
     ((F, height, width) z-depth with inf misses, edge overflow count as a
-    0-d tensor)."""
+    0-d tensor).
+
+    Each level's per-ray work (march and refine) is one launch of K6
+    (`ops.ray_march`) for a volume on the card, and the plain PyTorch march
+    and refine for a CPU volume; everything around it is the same."""
     F = K.shape[0]
     dev = K.device
-    vs = cfg.voxel_size
-    pad = 3.0 * vs
+    k6 = dev.type == "cuda" and not _plain_on_card
+    scene = (slot_dist, ext, aabb, n_bucket)
+    level = (K, Rcw, origin, t_min, t_max)
+    pad = 3.0 * cfg.voxel_size
     t_min_t = _f32(t_min, K)
     # |second difference of 1/z| scales with the square of the angular
     # pixel pitch; the default is calibrated at a 1280-wide render.
     edge_eps = float(np.float32(_EDGE_EPS) * np.float32((1280.0 / width) ** 2))
-
-    def ray_aabb_span(origins, dirs):
-        """Slab test against the active-block AABB in t units (t ==
-        z-depth).  t_exit < t_enter means the ray misses the volume."""
-        tiny = torch.where(dirs >= 0, _f32(1e-12, dirs), _f32(-1e-12, dirs))
-        inv = 1.0 / torch.where(dirs.abs() < 1e-12, tiny, dirs)
-        t1 = (aabb[0][None] - origins) * inv
-        t2 = (aabb[1][None] - origins) * inv
-        return (torch.minimum(t1, t2).amax(dim=-1), torch.maximum(t1, t2).amin(dim=-1))
 
     scales = _pyramid_scales(width, height)
 
     # ---- base level: full march + refine -------------------------------------
     s0 = scales[0]
     h0, w0 = height // s0, width // s0
-    dirs = _ray_dirs(K, Rcw, s0, h0, w0).reshape(-1, 3)
-    origins = origin[:, None, None, :].expand(F, h0, w0, 3).reshape(-1, 3)
-    t_en, t_ex = ray_aabb_span(origins, dirs)
-    t0 = torch.clamp(t_en - vs, min=t_min)
-    t_hi = torch.clamp(t_ex + vs, max=t_max)
-    found, ta, tb, va, vb = _march(cfg, slot_dist, ext, n_bucket, origins, dirs, t0,
-                                   t_min, t_hi, _BASE_MARCH_ITERS)
-    z = _refine(cfg, slot_dist, ext, n_bucket, origins, dirs, found, ta, tb, va, vb,
-                n_samples=_REFINE_SAMPLES_BASE,
-                n_iters=_REFINE_ITERS_BASE).reshape(F, h0, w0)
+    if k6:
+        z = march_base(cfg, scene, *level, s0, h0, w0, _BASE_MARCH_ITERS,
+                       _REFINE_SAMPLES_BASE, _REFINE_ITERS_BASE)
+    else:
+        z = _base_level_plain(cfg, scene, *level, s0, h0, w0)
 
     # ---- fine levels: dense 1/z upsampling + compacted edge re-march ---------
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -492,7 +589,6 @@ def _render_frames(
         ids_p[slot] = torch.arange(n_pp, dtype=torch.int64, device=dev)
         ids_p = ids_p[:cap_p]
         ids_safe_p = torch.clamp(ids_p, max=n_pp - 1)
-        live_p = ids_p < n_pp
 
         # Per-parent march window from the parent's 3x3 depth range +- pad.
         zmin_p = _min_pool3(z).reshape(-1)[ids_safe_p]
@@ -501,41 +597,12 @@ def _render_frames(
         zmax_p = _max_pool3(z).reshape(-1)[ids_safe_p]
         t_hi_p = torch.where(torch.isfinite(zmax_p), zmax_p + pad, _f32(t_max, z))
 
-        # f^2 child lanes, phase-major: lane l = phase * cap_p + j.
-        n_lanes = cap_p * ff
-        lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
-        phase = lane // cap_p
-        j = lane % cap_p
-        idp = ids_safe_p[j]
-        live = live_p[j]
-        fidx = idp // (h_p * w_p)
-        pp = idp % (h_p * w_p)
-        py = (pp // w_p) * f + phase // f  # this level's pixel row
-        px = (pp % w_p) * f + phase % f
-        pyf = py.float() * s + (0.5 * s - 0.5)  # full-resolution coords
-        pxf = px.float() * s + (0.5 * s - 0.5)
-        Kf = K[fidx]
-        one = torch.ones((n_lanes,), dtype=torch.float32, device=dev)
-        dirs_e = _rotate(Rcw[fidx], (pxf - Kf[:, 0, 2]) / Kf[:, 0, 0],
-                         (pyf - Kf[:, 1, 2]) / Kf[:, 1, 1], one)
-        origins_e = origin[fidx]
-        # Dead lanes get a far bound below their start and retire at once;
-        # live lanes also clip to the AABB span.
-        t_en_e, t_ex_e = ray_aabb_span(origins_e, dirs_e)
-        t0_e = torch.where(live, torch.maximum(t0_p[j], torch.maximum(t_en_e - vs, t_min_t)),
-                           t_min_t)
-        t_hi_e = torch.where(live, torch.minimum(t_hi_p[j], t_ex_e + vs),
-                             _f32(t_min - 1.0, z))
-        found, ta, tb, va, vb = _march(cfg, slot_dist, ext, n_bucket, origins_e, dirs_e,
-                                       t0_e, t_min, t_hi_e, _FINE_MARCH_ITERS)
-        t_hit_e = _refine(cfg, slot_dist, ext, n_bucket, origins_e, dirs_e, found, ta, tb,
-                          va, vb, n_samples=_REFINE_SAMPLES_FINE,
-                          n_iters=_REFINE_ITERS_FINE)
-        n_px = F * h_l * w_l
-        ids_full = (fidx * h_l + py) * w_l + px
-        zb = torch.cat([z_up.reshape(-1), z_up.new_zeros(1)])
-        zb[torch.where(live, ids_full, n_px)] = torch.where(live, t_hit_e, 0.0)
-        z = zb[:n_px].view(F, h_l, w_l)
+        if k6:
+            march_fine(cfg, scene, *level, s, f, ids_p, t0_p, t_hi_p, z_up,
+                       _FINE_MARCH_ITERS, _REFINE_SAMPLES_FINE, _REFINE_ITERS_FINE)
+            z = z_up
+        else:
+            z = _fine_level_plain(cfg, scene, *level, s, f, ids_p, t0_p, t_hi_p, z_up)
     return z, overflow
 
 

@@ -38,6 +38,7 @@ from mq3d_tpu_torch.kernels import _build
 from mq3d_tpu_torch.ops import fma as fma_ops
 from mq3d_tpu_torch.ops import tsdf
 from mq3d_tpu_torch.ops.gather import gather, gather_plain
+from mq3d_tpu_torch.ops.ray_march import march_base
 from mq3d_tpu_torch.ops.tsdf_patch import patch_lookup, patch_lookup_plain
 from mq3d_tpu_torch.ops.tsdf_window import (
     integrate_window, reset_window_pair_count, window_pair_count)
@@ -195,8 +196,15 @@ def test_empty_inputs_launch_nothing(cuda_device):
     window = {k: v.to(cuda_device) for k, v in _k5_operands().items()}
     window["wkeys"] = window["slots"] = torch.zeros(0, dtype=torch.int64, device=cuda_device)
     integrate_window(tsdf.TSDFConfig(block_resolution=4), **window)
+    cfg = tsdf.TSDFConfig(block_resolution=16, grid_dim=8)
+    scene = (torch.zeros(8 ** 3, dtype=torch.int32, device=cuda_device),
+             torch.zeros(17 ** 3 + 1, dtype=torch.int32, device=cuda_device),
+             torch.zeros((2, 3), device=cuda_device), 1)
+    no_views = torch.zeros((0, 3, 3), device=cuda_device)
+    assert march_base(cfg, scene, no_views, no_views, torch.zeros((0, 3), device=cuda_device),
+                      0.05, 6.0, 8, 4, 6, 24, 3, 1).shape == (0, 4, 6)
     assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0,
-                                      "fma": 0, "tsdf_window": 0}
+                                      "fma": 0, "tsdf_window": 0, "ray_march": 0}
 
 
 def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:

@@ -128,7 +128,7 @@ def test_cpu_calls_count_no_launch(rng):
     gather(torch.zeros(8), torch.zeros(4, dtype=torch.int32))
     fma_ops.fma(torch.ones(4), torch.ones(4), torch.ones(4))
     assert _build.launch_counts() == {"patch_lookup": 0, "i420_to_bgr": 0, "gather": 0,
-                                      "fma": 0, "tsdf_window": 0}
+                                      "fma": 0, "tsdf_window": 0, "ray_march": 0}
 
 
 def test_build_sources_and_flags():
@@ -136,7 +136,8 @@ def test_build_sources_and_flags():
     all started together, then one link); no source includes PyTorch's
     headers; the build hash follows the sources."""
     srcs = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
-    assert srcs == ["fma.cu", "gather.cu", "i420.cu", "patch_lookup.cu", "tsdf_window.cu"]
+    assert srcs == ["fma.cu", "gather.cu", "i420.cu", "patch_lookup.cu", "ray_march.cu",
+                    "tsdf_window.cu"]
     for p in _build.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text
@@ -146,11 +147,13 @@ def test_build_sources_and_flags():
     assert len(_build._source_hash()) == 16
     assert set(_build._SIGNATURES) == {
         "mq3d_patch_lookup", "mq3d_i420_to_bgr", "mq3d_gather", "mq3d_fma",
-        "mq3d_tsdf_window"}
+        "mq3d_tsdf_window", "mq3d_ray_march"}
     fma = (_build.CSRC_DIR / "fma.cu").read_text()
     assert 'extern "C" int mq3d_fma(' in fma and "__fmaf_rn" in fma
     k5 = (_build.CSRC_DIR / "tsdf_window.cu").read_text()
     assert 'extern "C" int mq3d_tsdf_window(' in k5 and "__fdiv_rn" in k5
+    k6 = (_build.CSRC_DIR / "ray_march.cu").read_text()
+    assert 'extern "C" int mq3d_ray_march(' in k6 and "__fsqrt_rn" in k6
     assert not any("fast_math" in f or "ftz" in f for f in _build.NVCC_FLAGS)
 
 
@@ -241,7 +244,8 @@ def test_launch_record_is_an_operator_inside_the_span():
 
 
 
-@pytest.mark.parametrize("name", ["patch_lookup", "i420_to_bgr", "gather", "fma", "tsdf_window"])
+@pytest.mark.parametrize("name", ["patch_lookup", "i420_to_bgr", "gather", "fma", "tsdf_window",
+                                  "ray_march"])
 def test_launch_calls_the_entry_in_its_record_then_counts(monkeypatch, name):
     """`_build.launch` calls mq3d_<name>(*args, stream) on the device's
     current stream inside the operator record "mq3d::<name>", then counts

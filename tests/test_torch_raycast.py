@@ -29,12 +29,9 @@ from mq3d_tpu.ops import raycast as jax_rc
 from mq3d_tpu.ops.tsdf import TSDFConfig as JaxConfig
 from mq3d_tpu.ops.tsdf import TSDFVolume as JaxVolume
 from mq3d_tpu.testing.synthetic import SyntheticSceneConfig, write_synthetic_project
-from mq3d_tpu_torch.geometry import quaternion as quat
-from mq3d_tpu_torch.geometry.coordinates import CoordinateSystem
-from mq3d_tpu_torch.models.datasets import CameraDataset
-from mq3d_tpu_torch.models.transforms import Transforms
 from mq3d_tpu_torch.ops import raycast as rc
 from mq3d_tpu_torch.ops.tsdf import TSDFConfig, TSDFVolume, state_from_numpy
+from mq3d_tpu_torch.testing import raycast_scenes as scenes
 
 torch.set_num_threads(1)
 
@@ -236,77 +233,17 @@ def test_edge_overflow_of_a_batch_matches_jax(partial_volumes):
 
 
 # -- analytic scenes of tests/test_raycast_adversarial.py, on the port --------
-
-W, H = 320, 240
-FX = FY = 260.0
-K_ADV = np.array([[FX, 0, W / 2], [0, FY, H / 2], [0, 0, 1]], np.float32)
-CFG_ADV = TSDFConfig(voxel_size=0.01, block_resolution=16, block_count=16384, grid_dim=64,
-                     depth_max=4.0, trunc_voxel_multiplier=10.0,
-                     chunk_active_capacity=8192, integrate_tile=256)
-
-
-def _rays():
-    u, v = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
-    return np.stack([(u - K_ADV[0, 2]) / FX, (v - K_ADV[1, 2]) / FY, np.ones_like(u)], -1)
-
-
-def _lookat_T_wc(eye, target, up=(0, -1, 0)):
-    eye = np.asarray(eye, np.float64)
-    z = np.asarray(target, np.float64) - eye
-    z /= np.linalg.norm(z)
-    x = np.cross(np.asarray(up, np.float64), z)
-    x /= np.linalg.norm(x)
-    y = np.cross(z, x)
-    T_cw = np.eye(4)
-    T_cw[:3, 0], T_cw[:3, 1], T_cw[:3, 2], T_cw[:3, 3] = x, y, z, eye
-    return np.linalg.inv(T_cw)
-
-
-def _plane_depth(T_wc, p0, n, bounds=None):
-    T_cw = np.linalg.inv(T_wc)
-    dirs_w = _rays() @ T_cw[:3, :3].T
-    n = np.asarray(n, np.float64)
-    denom = dirs_w @ n
-    num = n @ (np.asarray(p0, np.float64) - T_cw[:3, 3])
-    with np.errstate(divide="ignore", invalid="ignore"):
-        tt = num / denom
-    hit = (denom != 0) & (tt > 0)
-    if bounds is not None:
-        b = np.asarray(bounds, np.float64)
-        pw = T_cw[:3, 3] + tt[..., None] * dirs_w
-        hit &= np.all((pw >= b[:, 0] - 1e-9) & (pw <= b[:, 1] + 1e-9), -1)
-    return np.where(hit, tt, np.inf)
-
-
-def _scene_depth(T_wc, planes):
-    return np.min(np.stack([_plane_depth(T_wc, *p) for p in planes]), axis=0)
-
-
-def _integrate(planes, poses):
-    depth = np.stack([_scene_depth(T, planes) for T in poses]).astype(np.float32)
-    depth[~np.isfinite(depth)] = 0.0
-    vol = TSDFVolume(CFG_ADV, device="cpu")
-    vol.integrate(depth, np.tile(K_ADV[None], (len(poses), 1, 1)),
-                  np.stack(poses).astype(np.float32), np.ones(len(poses), bool))
-    return vol
-
-
-def _central(gt, far=np.inf):
-    c = np.zeros((H, W), bool)
-    c[H // 6: -H // 6, W // 6: -W // 6] = True
-    return c & np.isfinite(gt) & (gt < far)
+# (built by mq3d_tpu_torch/testing/raycast_scenes.py, which the card's tests
+# share)
 
 
 def test_thin_slab():
     from scipy.ndimage import binary_erosion
 
-    slab = ([0, 0, 1.5], [0, 0, -1.0], [[-0.15, 0.15], [-0.20, 0.20], [1.49, 1.51]])
-    planes = [slab, ([0, 0, 2.5], [0, 0, -1.0], None)]
-    vol = _integrate(planes, [_lookat_T_wc((x, y, 0.0), (0, 0, 1.5))
-                              for x in (-0.15, 0.0, 0.15) for y in (-0.1, 0.1)])
-    T = _lookat_T_wc((0.02, 0.01, 0.0), (0, 0, 1.5))
-    gt = _scene_depth(T, planes)
-    z = rc.raycast_depth(vol, K_ADV, T, W, H)
+    planes, poses, T = scenes.thin_slab()
+    vol = scenes.integrate_planes(planes, poses)
+    gt = scenes.scene_depth(T, planes)
+    z = rc.raycast_depth(vol, scenes.K_ADV, T, scenes.W, scenes.H)
     on_slab = gt < 2.0
     behind = (gt > 2.0) & np.isfinite(gt)
     assert (np.isfinite(z) & on_slab).sum() / on_slab.sum() > 0.97
@@ -322,13 +259,11 @@ def test_thin_slab():
 
 
 def test_depth_max_wall():
-    wall = ([0, 0, 3.9], [0, 0, -1.0], None)
-    vol = _integrate([wall], [_lookat_T_wc((x, y, 0.0), (0, 0, 3.9))
-                              for x in (-0.2, 0.0, 0.2) for y in (-0.15, 0.15)])
-    T = _lookat_T_wc((0.03, -0.02, 0.0), (0, 0, 3.9))
-    gt = _plane_depth(T, *wall)
-    z = rc.raycast_depth(vol, K_ADV, T, W, H)
-    m = _central(gt)
+    planes, poses, T = scenes.depth_max_wall()
+    vol = scenes.integrate_planes(planes, poses)
+    gt = scenes.plane_depth(T, *planes[0])
+    z = rc.raycast_depth(vol, scenes.K_ADV, T, scenes.W, scenes.H)
+    m = scenes.central(gt)
     assert (np.isfinite(z) & m).sum() / m.sum() > 0.97
     hit = m & np.isfinite(z)
     err = np.abs(z[hit] - gt[hit])
@@ -337,14 +272,11 @@ def test_depth_max_wall():
 
 
 def test_grazing_plane():
-    n = np.array([np.sin(np.deg2rad(78.0)), 0, -np.cos(np.deg2rad(78.0))])
-    plane = ([0, 0, 2.0], n, [[-2.0, 2.0], [-2.0, 2.0], [0.6, 3.4]])
-    vol = _integrate([plane], [_lookat_T_wc((x, y, 0.0), (0, 0, 2.0))
-                               for x in (-0.1, 0.0, 0.1) for y in (-0.1, 0.1)])
-    T = _lookat_T_wc((0.02, 0.03, 0.0), (0, 0, 2.0))
-    gt = _plane_depth(T, *plane)
-    z = rc.raycast_depth(vol, K_ADV, T, W, H)
-    m = _central(gt, far=3.4)
+    planes, poses, T = scenes.grazing_plane()
+    vol = scenes.integrate_planes(planes, poses)
+    gt = scenes.plane_depth(T, *planes[0])
+    z = rc.raycast_depth(vol, scenes.K_ADV, T, scenes.W, scenes.H)
+    m = scenes.central(gt, far=3.4)
     assert (np.isfinite(z) & m).sum() / m.sum() > 0.85
     hit = m & np.isfinite(z)
     err = np.abs(z[hit] - gt[hit])
@@ -353,28 +285,16 @@ def test_grazing_plane():
 
 
 def test_u16_stream_matches_f32():
-    wall = ([0, 0, 3.0], [0, 0, -1.0], None)
-    vol = _integrate([wall], [_lookat_T_wc((x, y, 0.0), (0, 0, 3.0))
-                              for x in (-0.2, 0.0, 0.2) for y in (-0.15, 0.15)])
-    views = [_lookat_T_wc((x, 0.01, 0.0), (0, 0, 3.0)) for x in (-0.05, 0.0, 0.05)]
-    T_cw = np.linalg.inv(np.stack(views))
+    planes, poses, views = scenes.wall_views()
+    vol = scenes.integrate_planes(planes, poses)
     n = len(views)
-    ones = np.ones(n)
-    ds = CameraDataset(
-        directory_relative_path="t",
-        image_file_names=np.array([f"{i}.png" for i in range(n)]),
-        timestamps=np.arange(n, dtype=np.int64),
-        fx=FX * ones, fy=FY * ones, cx=K_ADV[0, 2] * ones, cy=K_ADV[1, 2] * ones,
-        transforms=Transforms(coordinate_system=CoordinateSystem.OPEN3D,
-                              positions=T_cw[:, :3, 3].astype(np.float32),
-                              rotations=quat.from_matrix(T_cw[:, :3, :3])),
-        widths=np.full(n, W, np.int64), heights=np.full(n, H, np.int64))
+    ds = scenes.camera_dataset(views)
     f32 = list(rc.raycast_in_color_view(vol, ds, frames_per_batch=2))
     u16 = list(rc.raycast_in_color_view(vol, ds, frames_per_batch=2, transfer_u16=True))
     assert len(f32) == len(u16) == n
     # The generator renders what raycast_depth_batch renders.
     batch = rc.raycast_depth_batch(vol, ds.get_render_intrinsic_matrices()[:2],
-                                   ds.transforms.extrinsics_wc[:2], W, H)
+                                   ds.transforms.extrinsics_wc[:2], scenes.W, scenes.H)
     np.testing.assert_array_equal(f32[0], batch[0])
     np.testing.assert_array_equal(f32[1], batch[1])
     step = vol.cfg.depth_max * 1.5 / 65534.0
@@ -383,3 +303,23 @@ def test_u16_stream_matches_f32():
         np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
         m = np.isfinite(a)
         assert np.abs(a[m] - b[m]).max() <= step * 0.5 + 1e-6
+
+
+# -- K6's route: a CPU volume takes the plain march and refine ---------------
+
+def test_cpu_render_launches_no_k6_and_matches_jax(monkeypatch, loaded, volumes):
+    """A CPU render never calls K6's wrappers, launches nothing, and still
+    equals the JAX package within the tolerances above."""
+    from mq3d_tpu_torch.kernels import _build
+
+    ds, *_, K, T_wc = loaded
+    jv, tv = volumes
+    for name in ("march_base", "march_fine"):
+        monkeypatch.setattr(rc, name, lambda *a, name=name: pytest.fail(f"{name} called"))
+    _build.reset_launch_counts()
+    w, h = int(ds.widths[0]), int(ds.heights[0])
+    got = rc.raycast_depth_batch(tv, K[:4], T_wc[:4], w, h)
+    assert _build.launch_counts()["ray_march"] == 0
+    assert_depth_close(jax_rc.raycast_depth_batch(jv, K[:4], T_wc[:4], w, h), got)
+    with rc._plain_path():
+        np.testing.assert_array_equal(rc.raycast_depth_batch(tv, K[:4], T_wc[:4], w, h), got)
